@@ -1,0 +1,211 @@
+"""RDF graph substrate: dictionary-encoded tensor edge tables.
+
+The paper (Def. 1) models RDF data as a directed edge-labeled graph
+G = (V, E, L).  We store G as three parallel int32 arrays (s, p, o) --
+one row per triple -- plus a CSR-style index grouped by property, which
+is the access path every algorithm in the paper uses ("give me all edges
+with property p").  Predicate partitions are dense sorted tables that
+the GPU join kernels binary-search, in place of gStore's VS-tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..constants import MAX_PROPERTY_ID, MAX_VERTEX_ID
+
+
+@dataclasses.dataclass
+class RDFGraph:
+    """Dictionary-encoded RDF graph.
+
+    s, p, o: int32 arrays of equal length (one entry per triple/edge).
+    num_vertices / num_properties: sizes of the id spaces.
+    vertex_names / property_names: optional decoded terms (tests, demos).
+    """
+
+    s: np.ndarray
+    p: np.ndarray
+    o: np.ndarray
+    num_vertices: int
+    num_properties: int
+    vertex_names: Optional[List[str]] = None
+    property_names: Optional[List[str]] = None
+
+    # --- derived indexes (built lazily) ---
+    _prop_order: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+    _prop_offsets: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+    _triple_key_order: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self) -> None:
+        self.s = np.asarray(self.s, dtype=np.int32)
+        self.p = np.asarray(self.p, dtype=np.int32)
+        self.o = np.asarray(self.o, dtype=np.int32)
+        if not (len(self.s) == len(self.p) == len(self.o)):
+            raise ValueError("s/p/o must have equal length")
+        # Sentinel-collision guard: the blocked-join machinery pads key
+        # columns with INT32_MAX and row padding with -1, which is only
+        # sound while every real id stays inside the documented 21-bit
+        # bound.  Reject out-of-range ids here -- at or near the
+        # sentinel they would silently corrupt semijoin masks and edge
+        # tables instead of failing.
+        for name, arr, hi in (("s", self.s, MAX_VERTEX_ID),
+                              ("o", self.o, MAX_VERTEX_ID),
+                              ("p", self.p, MAX_PROPERTY_ID)):
+            if arr.size and (int(arr.min()) < 0 or int(arr.max()) > hi):
+                raise ValueError(
+                    f"RDFGraph.{name} ids must lie in [0, {hi}] (21-bit "
+                    f"id space; got range [{int(arr.min())}, "
+                    f"{int(arr.max())}]): ids beyond the bound can "
+                    f"collide with the INT32_MAX/-1 pad sentinels of "
+                    f"the blocked join kernels")
+
+    # ------------------------------------------------------------------
+    @property
+    def num_edges(self) -> int:
+        return int(len(self.s))
+
+    def _build_prop_index(self) -> None:
+        if self._prop_order is not None:
+            return
+        # Sort edge ids by (p, s, o) so each property's edges are contiguous
+        # and sorted by subject -- enables searchsorted joins.
+        order = np.lexsort((self.o, self.s, self.p))
+        self._prop_order = order.astype(np.int64)
+        counts = np.bincount(self.p, minlength=self.num_properties)
+        self._prop_offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+    def edges_with_property(self, pid: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Return (edge_ids, subjects, objects) for property ``pid``.
+
+        subjects are sorted ascending (ties broken by object).
+        """
+        self._build_prop_index()
+        lo = self._prop_offsets[pid]
+        hi = self._prop_offsets[pid + 1]
+        eids = self._prop_order[lo:hi]
+        return eids, self.s[eids], self.o[eids]
+
+
+    # ------------------------------------------------------------------
+    def edge_ids_for_triples(self, s: np.ndarray, p: np.ndarray, o: np.ndarray) -> np.ndarray:
+        """Map (s,p,o) triples back to edge ids (first matching row).
+
+        Used by fragmentation to turn pattern-match bindings into edge-id
+        sets.  Triples not present map to -1.
+        """
+        self._build_prop_index()
+        if self._triple_key_order is None:
+            key = (self.p.astype(np.int64) * (self.num_vertices + 1) + self.s.astype(np.int64)
+                   ) * (self.num_vertices + 1) + self.o.astype(np.int64)
+            order = np.argsort(key, kind="stable")
+            self._triple_key_order = order
+            self._triple_key_sorted = key[order]
+        qkey = (np.asarray(p, np.int64) * (self.num_vertices + 1) + np.asarray(s, np.int64)
+                ) * (self.num_vertices + 1) + np.asarray(o, np.int64)
+        pos = np.searchsorted(self._triple_key_sorted, qkey)
+        pos = np.clip(pos, 0, len(self._triple_key_sorted) - 1)
+        found = self._triple_key_sorted[pos] == qkey
+        eids = np.where(found, self._triple_key_order[pos], -1)
+        return eids.astype(np.int64)
+
+    # ------------------------------------------------------------------
+    def hot_cold_split(self, frequent_props: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Def. 5/6: split edge ids into (hot, cold) by property frequency."""
+        mask = np.zeros(self.num_properties, dtype=bool)
+        mask[np.asarray(list(frequent_props), dtype=np.int64)] = True
+        hot = np.nonzero(mask[self.p])[0]
+        cold = np.nonzero(~mask[self.p])[0]
+        return hot, cold
+
+# ======================================================================
+# Dataset generators
+# ======================================================================
+
+@dataclasses.dataclass
+class WatDivSchema:
+    """Schema of the WatDiv-like generator: entity classes and properties
+    with (src_class, dst_class, out_degree distribution)."""
+    classes: List[str]
+    class_sizes: List[int]
+    properties: List[Tuple[str, int, int, float]]  # name, src_cls, dst_cls, mean out-degree
+
+
+def default_watdiv_schema(scale: int = 1000) -> WatDivSchema:
+    """WatDiv models an e-commerce domain: users, products, retailers,
+    reviews, ... We mirror its flavor (typed entities, star+path shapes,
+    correlated attributes)."""
+    classes = ["User", "Product", "Retailer", "Review", "City", "Genre",
+               "Website", "Language"]
+    sizes = [scale, scale // 2, max(scale // 20, 4), scale,
+             max(scale // 50, 4), max(scale // 100, 4), max(scale // 20, 4),
+             max(scale // 200, 2)]
+    props = [
+        ("follows",      0, 0, 2.0),
+        ("likes",        0, 1, 3.0),
+        ("purchased",    0, 1, 1.5),
+        ("makesReview",  0, 3, 1.0),
+        ("reviewOf",     3, 1, 1.0),
+        ("rating",       3, 5, 1.0),   # rating -> Genre ids reused as grades
+        ("sells",        2, 1, 8.0),
+        ("homepage",     2, 6, 1.0),
+        ("hasGenre",     1, 5, 1.5),
+        ("language",     1, 7, 1.0),
+        ("locatedIn",    0, 4, 1.0),
+        ("cityOf",       4, 4, 0.5),
+        ("friendOf",     0, 0, 1.0),
+        ("dislikes",     0, 1, 0.5),   # infrequent in workloads -> cold
+        ("caption",      1, 6, 0.3),   # cold
+        ("tag",          3, 5, 0.4),   # cold
+    ]
+    return WatDivSchema(classes, sizes, props)
+
+
+def generate_watdiv(num_triples: int, seed: int = 0,
+                    schema: Optional[WatDivSchema] = None) -> RDFGraph:
+    """Generate a WatDiv-like RDF graph with ~num_triples triples.
+
+    Entities are laid out class-major; property edges connect classes per
+    the schema with Zipf-ish in-degree on destinations (real RDF data has
+    heavy-tailed degree distributions -- this drives the paper's
+    redundancy/scalability behaviour).
+    """
+    if schema is None:
+        schema = default_watdiv_schema(scale=max(num_triples // 12, 64))
+    rng = np.random.default_rng(seed)
+
+    # vertex id layout: class-major blocks
+    offsets = np.concatenate([[0], np.cumsum(schema.class_sizes)]).astype(np.int64)
+    num_vertices = int(offsets[-1])
+
+    total_mean = sum(schema.class_sizes[sc] * deg for _, sc, _, deg in schema.properties)
+    scale_fix = num_triples / max(total_mean, 1)
+
+    ss, pp, oo = [], [], []
+    for pid, (name, sc, dc, deg) in enumerate(schema.properties):
+        n_src = schema.class_sizes[sc]
+        n_dst = schema.class_sizes[dc]
+        n_edges = int(n_src * deg * scale_fix)
+        if n_edges <= 0:
+            continue
+        src = rng.integers(offsets[sc], offsets[sc] + n_src, size=n_edges)
+        # zipf-ish destination popularity
+        ranks = rng.zipf(1.7, size=n_edges) % n_dst
+        dst = offsets[dc] + ranks
+        ss.append(src)
+        pp.append(np.full(n_edges, pid, dtype=np.int64))
+        oo.append(dst)
+
+    s = np.concatenate(ss)
+    p = np.concatenate(pp)
+    o = np.concatenate(oo)
+    # dedupe exact duplicate triples (RDF is a set of triples)
+    key = (p * (num_vertices + 1) + s) * (num_vertices + 1) + o
+    _, keep = np.unique(key, return_index=True)
+    keep.sort()
+    pnames = [pr[0] for pr in schema.properties]
+    return RDFGraph(s[keep].astype(np.int32), p[keep].astype(np.int32),
+                    o[keep].astype(np.int32), num_vertices,
+                    len(schema.properties), None, pnames)

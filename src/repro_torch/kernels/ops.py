@@ -1,0 +1,214 @@
+"""Public wrappers around the CUDA join kernels.
+
+Each wrapper dispatches on the device of its tensors and on nothing
+else: tensors on the CPU go to the plain version in ``ref.py``; tensors
+on a CUDA device launch the hand-written kernel (``csrc/``, built at
+first use by ``build.py``) on PyTorch's current stream, or the wrapper
+raises.  ``LAUNCHES`` counts kernel launches per wrapper, one per call
+that reached the card.
+
+``compact_rows`` is plain tensor code on every device (a cumsum-scatter:
+torch has no ``nonzero(size=, fill_value=)``), as it is plain jnp in
+the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from . import ref
+from ..constants import INT32_SENTINEL
+
+_I32 = torch.int32
+
+#: kernel launches per wrapper since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {"join_count": 0, "pair_semijoin": 0,
+                            "dedup_rows": 0, "fused_join": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors
+    (kernel); raises on any other device or on mixed devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return True
+
+
+def _i32(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != _I32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    return t.contiguous()
+
+
+def _flags(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.bool:
+        raise TypeError(f"{name}: expected a bool mask, got {t.dtype}")
+    return t.contiguous()
+
+
+def _vectors(name: str, *tensors: torch.Tensor) -> None:
+    """1-D tensors of one length: the kernels index them in lock step,
+    so a mismatch would read past the end of one of them."""
+    shapes = [tuple(t.shape) for t in tensors]
+    if any(len(sh) != 1 or sh != shapes[0] for sh in shapes):
+        raise ValueError(f"{name}: expected 1-D tensors of one length, "
+                         f"got shapes {shapes}")
+
+
+def _table(name: str, bind: torch.Tensor, *rows: torch.Tensor) -> None:
+    """A (C, V) binding table and (C,) per-row vectors."""
+    if bind.dim() != 2 or any(r.dim() != 1 or r.shape[0] != bind.shape[0]
+                              for r in rows):
+        raise ValueError(f"{name}: expected a (C, V) table and (C,) "
+                         f"vectors, got shapes "
+                         f"{[tuple(t.shape) for t in (bind,) + rows]}")
+
+
+def _launch(name: str, *args) -> None:
+    from .build import kernel
+    stream = torch.cuda.current_stream().cuda_stream
+    err = kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                         for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _hash_size(C: int) -> int:
+    """Power-of-two open-addressing table size >= 2C (load factor <=
+    1/2: probe chains stay short and an empty slot always exists)."""
+    H = 8
+    while H < 2 * C:
+        H *= 2
+    return H
+
+
+def compact_rows(sel: torch.Tensor, cols: Tuple[torch.Tensor, ...],
+                 size: int, fill: int = INT32_SENTINEL
+                 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Pack the rows where ``sel`` holds into fixed-``size`` int32
+    buffers padded with ``fill``, in order; selected rows beyond
+    ``size`` are dropped (callers size the buffer statically or count
+    the surplus as overflow).  Each entry of ``cols`` is indexed on its
+    leading axis.  Returns ``(packed columns, valid mask)`` with no host
+    synchronisation: destinations come from a cumsum, surplus and
+    unselected rows scatter to one discarded slot."""
+    dev = sel.device
+    pos = torch.cumsum(sel, 0) - 1
+    dest = torch.where(sel & (pos < size), pos, size)
+    out = []
+    for c in cols:
+        buf = torch.full((size + 1,) + tuple(c.shape[1:]), fill, dtype=_I32,
+                         device=dev)
+        buf.index_copy_(0, dest, c.to(_I32))
+        out.append(buf[:size])
+    ok = torch.arange(size, device=dev) < sel.sum()
+    return tuple(out), ok
+
+
+def join_count(probe: torch.Tensor, keys_sorted: torch.Tensor
+               ) -> torch.Tensor:
+    """counts[i] = multiplicity of ``probe[i]`` in the ascending int32
+    key column ``keys_sorted``."""
+    _vectors("join_count", probe)
+    _vectors("join_count", keys_sorted)
+    if not _on_card("join_count", probe, keys_sorted):
+        return ref.join_count_ref(probe, keys_sorted)
+    probe = _i32("join_count", probe)
+    keys = _i32("join_count", keys_sorted)
+    out = torch.empty_like(probe)
+    _launch("join_count", probe, probe.numel(), keys, keys.numel(), out)
+    return out
+
+
+def pair_semijoin(q_s: torch.Tensor, q_o: torch.Tensor,
+                  t_s: torch.Tensor, t_o: torch.Tensor) -> torch.Tensor:
+    """mask[i] = some table row r has (t_s[r], t_o[r]) == (q_s[i],
+    q_o[i]); neither side needs to be sorted (the table is lexsorted
+    here, as the reference wrapper does outside its kernel)."""
+    _vectors("pair_semijoin", q_s, q_o)
+    _vectors("pair_semijoin", t_s, t_o)
+    if not _on_card("pair_semijoin", q_s, q_o, t_s, t_o):
+        return ref.pair_semijoin_ref(q_s, q_o, t_s, t_o)
+    q_s, q_o = _i32("pair_semijoin", q_s), _i32("pair_semijoin", q_o)
+    t_s, t_o = _i32("pair_semijoin", t_s), _i32("pair_semijoin", t_o)
+    order = ref.lexsort((t_o, t_s))
+    ts, to = t_s[order].contiguous(), t_o[order].contiguous()
+    out = torch.empty(q_s.shape, dtype=torch.bool, device=q_s.device)
+    _launch("pair_semijoin", q_s, q_o, q_s.numel(), ts, to, ts.numel(), out)
+    return out
+
+
+def dedup_rows(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """First-occurrence keep mask over the valid rows of a padded (C, V)
+    int32 binding table: ``keep[i]`` iff ``valid[i]`` and no earlier
+    valid row equals row ``i``.  Rows stay in place."""
+    _table("dedup_rows", bind, valid)
+    if not _on_card("dedup_rows", bind, valid):
+        return ref.dedup_rows_ref(bind, valid)
+    C, V = bind.shape
+    if V == 0:
+        raise ValueError("dedup_rows: the kernel needs at least one column")
+    bind, valid = _i32("dedup_rows", bind), _flags("dedup_rows", valid)
+    H = _hash_size(C)
+    dev = bind.device
+    slots = torch.empty(H, dtype=_I32, device=dev)
+    slot_of = torch.empty(C, dtype=_I32, device=dev)
+    keep = torch.empty(C, dtype=torch.bool, device=dev)
+    _launch("dedup_rows", bind, valid, C, V, slots, H, slot_of, keep)
+    return keep
+
+
+def fused_join(bind: torch.Tensor, valid: torch.Tensor, probe: torch.Tensor,
+               keys_sorted: torch.Tensor, payload: torch.Tensor,
+               capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Dedup the valid rows of a gathered (C, V) binding table, then
+    join-expand the survivors' ``probe`` keys against a sorted (keys ->
+    payload) edge table into ``capacity`` rows.  Returns (new_bind
+    (capacity, V), new_col, new_valid, overflow) where overflow counts
+    result rows that did not fit (with the int32 wrap guard of
+    ``ref.expand_from_counts``).  The kernel keeps the input row order
+    and the plain version the sorted dedup order; both give the same
+    row multiset and overflow count."""
+    _table("fused_join", bind, valid, probe)
+    _vectors("fused_join", keys_sorted, payload)
+    if capacity < 0:
+        raise ValueError(f"fused_join: capacity must be >= 0, got {capacity}")
+    if not _on_card("fused_join", bind, valid, probe, keys_sorted, payload):
+        return ref.fused_join_ref(bind, valid, probe, keys_sorted, payload,
+                                  capacity)
+    C, V = bind.shape
+    if V == 0:
+        raise ValueError("fused_join: the kernel needs at least one column")
+    bind, valid = _i32("fused_join", bind), _flags("fused_join", valid)
+    probe = _i32("fused_join", probe)
+    keys = _i32("fused_join", keys_sorted)
+    payload = _i32("fused_join", payload)
+    dev = bind.device
+    H = _hash_size(C)
+    scratch = torch.empty(H + 4 * C + (C + 4095) // 4096 + 2, dtype=_I32,
+                          device=dev)
+    slots, slot_of, lo, cnt, start, tile_sums, scalars = torch.split(
+        scratch, [H, C, C, C, C, (C + 4095) // 4096, 2])
+    out_bind = torch.empty((capacity, V), dtype=_I32, device=dev)
+    out_col = torch.empty(capacity, dtype=_I32, device=dev)
+    out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
+    over = torch.zeros(1, dtype=_I32, device=dev)
+    _launch("fused_join", bind, valid, probe, C, V, keys, payload,
+            keys.numel(), capacity, slots, H, slot_of, lo, cnt, start,
+            tile_sums, scalars, out_bind, out_col, out_valid, over)
+    return out_bind, out_col, out_valid, over[0]

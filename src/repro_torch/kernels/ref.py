@@ -1,0 +1,160 @@
+"""Plain PyTorch versions of the hand-written join kernels.
+
+These are the semantics of record: ``kernels.ops`` runs them for
+tensors on the CPU, the tests compare them with the JAX package's
+oracles, and ``chip_smoke.py`` holds every CUDA kernel against them on
+the card.  They are written with ordinary tensor ops and run on any
+device.  torch has no ``lexsort``, so ``lexsort`` below chains stable
+sorts, last key first.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from ..constants import INT32_SENTINEL
+
+_I32 = torch.int32
+
+
+def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Indices that sort by ``keys`` like ``numpy.lexsort``: the LAST
+    key is the primary one, ties keep their original order."""
+    n = keys[0].shape[0]
+    order = torch.arange(n, device=keys[0].device)
+    for k in keys:                      # least significant key first
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def join_count_ref(probe: torch.Tensor, keys_sorted: torch.Tensor
+                   ) -> torch.Tensor:
+    """counts[i] = multiplicity of ``probe[i]`` in the ascending key
+    column (the expansion size of one binding row)."""
+    lo = torch.searchsorted(keys_sorted, probe, right=False)
+    hi = torch.searchsorted(keys_sorted, probe, right=True)
+    return (hi - lo).to(_I32)
+
+
+def pair_semijoin_ref(q_s: torch.Tensor, q_o: torch.Tensor,
+                      t_s: torch.Tensor, t_o: torch.Tensor) -> torch.Tensor:
+    """mask[i] = some table row r has (t_s[r], t_o[r]) == (q_s[i],
+    q_o[i]).  Neither side needs to be sorted: lexsort the
+    concatenation with table rows ordered before equal query rows, then
+    a query row hits iff the nearest preceding table row carries the
+    same pair (exact int32, no 42-bit key composition)."""
+    T, Q = t_s.shape[0], q_s.shape[0]
+    if T == 0 or Q == 0:
+        return torch.zeros(q_s.shape, dtype=torch.bool, device=q_s.device)
+    cs = torch.cat([t_s, q_s]).to(_I32)
+    co = torch.cat([t_o, q_o]).to(_I32)
+    flag = torch.cat([torch.zeros(T, dtype=_I32, device=cs.device),
+                      torch.ones(Q, dtype=_I32, device=cs.device)])
+    order = lexsort((flag, co, cs))
+    fs, fo, ff = cs[order], co[order], flag[order]
+    idx = torch.arange(T + Q, device=cs.device)
+    last_tab = torch.cummax(torch.where(ff == 0, idx, -1), 0).values
+    lt = last_tab.clamp(0, T + Q - 1)
+    hit = (ff == 1) & (last_tab >= 0) & (fs[lt] == fs) & (fo[lt] == fo)
+    out = torch.zeros(T + Q, dtype=torch.bool, device=cs.device)
+    out[order] = hit
+    return out[T:]
+
+
+def dedup_padded_ref(bind: torch.Tensor, valid: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact dedup of a padded binding table, rows returned sorted:
+    (sorted table with duplicates and invalid rows set to -1, keep mask
+    in sorted positions, the sorting permutation).  Valid rows sort
+    first and ties keep their original order, so the first of each
+    duplicate run is the earliest index."""
+    C, V = bind.shape
+    if V == 0:
+        keep = torch.zeros(C, dtype=torch.bool, device=bind.device)
+        keep[:1] = valid.any()
+        return bind, keep, torch.arange(C, device=bind.device)
+    keys = tuple(bind[:, v] for v in range(V - 1, -1, -1)) \
+        + ((~valid).to(_I32),)
+    order = lexsort(keys)
+    bs, vs = bind[order], valid[order]
+    dup = torch.zeros(C, dtype=torch.bool, device=bind.device)
+    dup[1:] = (bs[1:] == bs[:-1]).all(dim=1) & vs[1:] & vs[:-1]
+    keep = vs & ~dup
+    return torch.where(keep[:, None], bs, -1), keep, order
+
+
+def dedup_rows_ref(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """keep[i] = valid[i] and no earlier valid row j < i has bind[j] ==
+    bind[i] (all columns): first occurrence by original index, keep
+    mask in original row positions."""
+    _b, keep_sorted, order = dedup_padded_ref(bind, valid)
+    if bind.shape[1] == 0:
+        return keep_sorted
+    keep = torch.zeros_like(keep_sorted)
+    keep[order] = keep_sorted
+    return keep
+
+
+def expand_from_counts(bind: torch.Tensor, lo: torch.Tensor,
+                       cnt: torch.Tensor, payload: torch.Tensor,
+                       capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fixed-capacity join expansion once every binding row knows its
+    run ``[lo, lo + cnt)`` in the sorted edge table: exclusive scan of
+    the counts, then the inverse map output slot -> source row.
+
+    Returns (new_bind (capacity, V), new_payload_col, new_valid,
+    overflow).  The scan is int32 as on the reference (x64 off):
+    ``sum(cnt)`` cannot wrap while every ``cnt <= (2^31-1)/C``, and a
+    larger count is reported as a conservative overflow of
+    ``capacity + 1`` so the retry ladder, not silent truncation,
+    handles it."""
+    C = bind.shape[0]
+    dev = bind.device
+    T = payload.shape[0]
+    if C:
+        wrap_risk = cnt.max() > (2 ** 31 - 1) // C
+        start = torch.cumsum(cnt, 0, dtype=_I32) - cnt
+        total = start[-1] + cnt[-1]
+    else:
+        wrap_risk = torch.zeros((), dtype=torch.bool, device=dev)
+        start = cnt
+        total = torch.zeros((), dtype=_I32, device=dev)
+    t = torch.arange(capacity, dtype=_I32, device=dev)
+    r = (torch.searchsorted(start, t, right=True) - 1).clamp(0, max(C - 1, 0))
+    k = t - start[r]
+    ok = (t < total) & (k < cnt[r])
+    src = (lo[r] + k).clamp(0, max(T - 1, 0))
+    new_col = torch.where(ok, payload[src], -1)
+    new_bind = torch.where(ok[:, None], bind[r], -1)
+    over = (total - capacity).clamp(min=0).to(_I32)
+    over = torch.where(wrap_risk, torch.tensor(capacity + 1, dtype=_I32,
+                                               device=dev), over)
+    return new_bind, new_col, ok, over
+
+
+def expand_fixed_ref(bind: torch.Tensor, valid: torch.Tensor,
+                     col_vals: torch.Tensor, keys_sorted: torch.Tensor,
+                     payload: torch.Tensor, capacity: int):
+    """Join-expand a padded binding table against a sorted (keys ->
+    payload) edge table into ``capacity`` rows (see
+    ``expand_from_counts`` for the outputs)."""
+    probe = torch.where(valid, col_vals, INT32_SENTINEL)
+    lo = torch.searchsorted(keys_sorted, probe)
+    cnt = torch.where(valid, join_count_ref(probe, keys_sorted), 0).to(_I32)
+    return expand_from_counts(bind, lo, cnt, payload, capacity)
+
+
+def fused_join_ref(bind: torch.Tensor, valid: torch.Tensor,
+                   probe: torch.Tensor, keys_sorted: torch.Tensor,
+                   payload: torch.Tensor, capacity: int):
+    """Dedup, then join-expand: the composition of record for the fused
+    join (``dedup_padded_ref`` + ``expand_fixed_ref``, with ``probe``
+    aligned to the input rows).  Output rows follow the sorted dedup
+    order; the CUDA kernel keeps the input order instead, so the two
+    agree on the row multiset and the overflow count."""
+    db, dv, order = dedup_padded_ref(bind, valid)
+    return expand_fixed_ref(db, dv, probe[order], keys_sorted, payload,
+                            capacity)

@@ -1,0 +1,89 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to run on the card when there is none."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+BLOCKED = ("jax", "jaxlib", "repro")
+
+_BLOCKING_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = %r
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names), "modules")
+"""
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    out = subprocess.run([sys.executable, "-c", _BLOCKING_IMPORT % (BLOCKED,)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "modules" in out.stdout
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, (
+                f"{path.name}:{node.lineno} imports {name}")
+
+
+def test_entry_points_default_to_the_card():
+    """With no device given every entry point asks for CUDA, and raises
+    where there is none instead of moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from repro_torch import convert
+    from repro_torch.core import QueryGraph, RDFGraph, SpmdEngine
+    from repro_torch.core.spmd import SiteStore
+    g = RDFGraph(np.array([0, 1]), np.array([0, 0]), np.array([1, 2]), 3, 1)
+    sites = [np.array([0]), np.array([1])]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpmdEngine(g, sites)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SiteStore.build(g, sites)
+    arrays = {"s": g.s, "p": g.p, "o": g.o, "num_vertices": 3,
+              "num_properties": 1, "site_edge_ids": sites,
+              "replicated_props": []}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.engine_from_arrays(arrays)
+    q = QueryGraph.make([(-1, -2, 0)])
+    assert SpmdEngine(g, sites, device="cpu").execute(q).num_rows == 2

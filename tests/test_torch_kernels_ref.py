@@ -1,0 +1,279 @@
+"""Plain versions of the port's join kernels vs the JAX package.
+
+Every comparison here is exact (integer or boolean array equality): the
+same seeded numpy inputs go through ``repro_torch.kernels`` on the CPU
+(where each wrapper runs its plain version) and through the JAX
+package's jnp oracles, its Pallas ``join_count``/``pair_semijoin`` in
+interpret mode, and its ``_dedup_padded`` + ``_expand_fixed``
+composition with ``REPRO_SPMD_PALLAS=0``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import spmd as jspmd
+from repro.kernels import join_count as j_join_count
+from repro.kernels import pair_semijoin as j_pair_semijoin
+from repro.kernels import ref as jref
+from repro.kernels.ops import compact_rows as j_compact_rows
+from repro_torch.core import spmd as tspmd
+from repro_torch.kernels import ops, ref
+
+INT32_MAX = np.iinfo(np.int32).max
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.fixture
+def no_launches():
+    """Wrappers given CPU tensors run the plain version: no launch."""
+    ops.reset_launches()
+    yield
+    assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+
+
+def test_lexsort_matches_numpy():
+    rng = np.random.default_rng(0)
+    keys = [rng.integers(0, 4, 300).astype(np.int32) for _ in range(3)]
+    _eq(ref.lexsort([_t(k) for k in keys]), np.lexsort(keys))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (100, 1000), (2000, 2000),
+                                 (513, 1025)])
+def test_join_count_matches_reference(m, n, no_launches):
+    rng = np.random.default_rng(m * 7 + n)
+    table = np.sort(rng.integers(0, 400, size=n).astype(np.int32))
+    queries = rng.integers(0, 500, size=m).astype(np.int32)
+    got = ops.join_count(_t(queries), _t(table))
+    assert got.dtype == torch.int32
+    _eq(got, jref.join_count_ref(jnp.asarray(queries), jnp.asarray(table)))
+    _eq(got, j_join_count(jnp.asarray(queries), jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("fill", [-1, INT32_MAX])
+def test_join_count_padded_sentinel_parity(fill, no_launches):
+    rng = np.random.default_rng(5)
+    real = rng.integers(0, 300, size=700).astype(np.int32)
+    table = np.sort(np.concatenate([real, np.full(345, fill, np.int32)]))
+    queries = rng.integers(0, 400, size=500).astype(np.int32)
+    if fill == -1:
+        queries = np.concatenate([queries, np.full(77, fill, np.int32)])
+    got = ops.join_count(_t(queries), _t(table))
+    _eq(got, j_join_count(jnp.asarray(queries), jnp.asarray(table)))
+    # all-padding tables: sentinel rows never meet a real id, -1 rows
+    # count exactly the -1 probes
+    sent = np.full(1000, INT32_MAX, np.int32)
+    _eq(ops.join_count(_t(queries), _t(sent)), np.zeros(len(queries)))
+    neg = np.full(1000, -1, np.int32)
+    _eq(ops.join_count(_t(queries), _t(neg)), (queries == -1) * 1000)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (100, 1000), (513, 1025),
+                                 (1500, 1000)])
+def test_pair_semijoin_matches_reference(m, n, no_launches):
+    rng = np.random.default_rng(m + 3 * n)
+    t_s, t_o = (rng.integers(0, 60, size=n).astype(np.int32)
+                for _ in range(2))
+    q_s, q_o = (rng.integers(0, 70, size=m).astype(np.int32)
+                for _ in range(2))
+    got = ops.pair_semijoin(_t(q_s), _t(q_o), _t(t_s), _t(t_o))
+    want = j_pair_semijoin(jnp.asarray(q_s), jnp.asarray(q_o),
+                           jnp.asarray(t_s), jnp.asarray(t_o))
+    _eq(got, want)
+    _eq(got, jref.pair_semijoin_ref(jnp.asarray(q_s), jnp.asarray(q_o),
+                                    jnp.asarray(t_s), jnp.asarray(t_o)))
+
+
+def test_pair_semijoin_padded_and_empty(no_launches):
+    rng = np.random.default_rng(9)
+    pad = np.full(112, INT32_MAX, np.int32)
+    t_s = np.concatenate([rng.integers(0, 50, 400).astype(np.int32), pad])
+    t_o = np.concatenate([rng.integers(0, 50, 400).astype(np.int32), pad])
+    q_s, q_o = (rng.integers(0, 50, 300).astype(np.int32) for _ in range(2))
+    _eq(ops.pair_semijoin(_t(q_s), _t(q_o), _t(t_s), _t(t_o)),
+        j_pair_semijoin(jnp.asarray(q_s), jnp.asarray(q_o),
+                        jnp.asarray(t_s), jnp.asarray(t_o)))
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert not ops.pair_semijoin(_t(q_s), _t(q_o), empty, empty).any()
+    assert ops.pair_semijoin(empty, empty, _t(t_s), _t(t_o)).shape == (0,)
+
+
+def _bind_case(C, V, style, seed):
+    rng = np.random.default_rng(seed)
+    if style == "dup_heavy":
+        bind = rng.integers(0, 3, (C, V)).astype(np.int32)
+        valid = rng.random(C) < 0.9
+    elif style == "all_sentinel":
+        bind = np.full((C, V), -1, np.int32)
+        valid = np.zeros(C, bool)
+    elif style == "all_valid_distinct":
+        bind = np.arange(C * V, dtype=np.int32).reshape(C, V)
+        valid = np.ones(C, bool)
+    else:                                   # random with padding holes
+        bind = rng.integers(0, 40, (C, V)).astype(np.int32)
+        valid = rng.random(C) < 0.7
+        bind[~valid] = -1
+    return bind, valid
+
+
+def _first_occurrence_keep(bind, valid):
+    seen, keep = set(), np.zeros(len(valid), bool)
+    for i in range(len(valid)):
+        key = tuple(bind[i].tolist())
+        if valid[i] and key not in seen:
+            seen.add(key)
+            keep[i] = True
+    return keep
+
+
+@pytest.mark.parametrize("C,V", [(8, 1), (64, 3), (256, 2), (128, 5),
+                                 (512, 4), (16, 0)])
+@pytest.mark.parametrize("style", ["random", "dup_heavy", "all_sentinel",
+                                   "all_valid_distinct"])
+def test_dedup_matches_reference(C, V, style, monkeypatch, no_launches):
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    bind, valid = _bind_case(C, V, style, seed=C * 31 + V)
+    keep = ops.dedup_rows(_t(bind), _t(valid))
+    _eq(keep, jref.dedup_rows_ref(jnp.asarray(bind), jnp.asarray(valid)))
+    if V:
+        _eq(keep, _first_occurrence_keep(bind, valid))
+    # the sorted form used on the CPU path of the match loop is the
+    # reference's _dedup_padded, array for array
+    got_b, got_k = tspmd._dedup_padded(_t(bind), _t(valid))
+    want_b, want_k = jspmd._dedup_padded(jnp.asarray(bind),
+                                         jnp.asarray(valid))
+    _eq(got_b, want_b)
+    _eq(got_k, want_k)
+
+
+def _edge_table(T, n_real, key_range, seed):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, key_range, n_real).astype(np.int32))
+    keys = np.concatenate([keys, np.full(T - n_real, INT32_MAX, np.int32)])
+    payload = np.concatenate([rng.integers(0, 99, n_real).astype(np.int32),
+                              np.full(T - n_real, -1, np.int32)])
+    return keys, payload
+
+
+def _reference_join(bind, valid, keys, payload, capacity):
+    """The JAX package's composition of record (REPRO_SPMD_PALLAS=0):
+    dedup, then the probe column of the deduped table, then expand."""
+    db, dv = jspmd._dedup_padded(jnp.asarray(bind), jnp.asarray(valid))
+    return jspmd._expand_fixed(db, dv, db[:, 0], jnp.asarray(keys),
+                               jnp.asarray(payload), capacity)
+
+
+def _check_join(bind, valid, keys, payload, capacity):
+    got = ops.fused_join(_t(bind), _t(valid), _t(bind[:, 0]), _t(keys),
+                         _t(payload), capacity)
+    want = _reference_join(bind, valid, keys, payload, capacity)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    return int(got[3])
+
+
+@pytest.mark.parametrize("C,V,T,capacity", [
+    (64, 2, 64, 256), (128, 3, 32, 512), (64, 2, 8, 256), (256, 4, 128, 1024),
+])
+@pytest.mark.parametrize("style", ["random", "dup_heavy", "all_sentinel"])
+def test_fused_join_matches_reference_composition(C, V, T, capacity, style,
+                                                  monkeypatch, no_launches):
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    bind, valid = _bind_case(C, V, style, seed=C + T)
+    keys, payload = _edge_table(T, max(T // 2, 1), 40, seed=C * T)
+    assert _check_join(bind, valid, keys, payload, capacity) == 0
+
+
+def test_fused_join_empty_property_table(monkeypatch, no_launches):
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    bind, valid = _bind_case(64, 2, "random", seed=9)
+    keys = np.full(16, INT32_MAX, np.int32)
+    payload = np.full(16, -1, np.int32)
+    assert _check_join(bind, valid, keys, payload, 128) == 0
+
+
+@pytest.mark.parametrize("capacity", [1, 4, 16])
+def test_fused_join_overflow_matches_reference(capacity, monkeypatch,
+                                               no_launches):
+    """Under overflow the truncated rows and the count both match: the
+    plain version keeps the reference's sorted row order."""
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    bind, valid = _bind_case(128, 2, "dup_heavy", seed=3)
+    keys, payload = _edge_table(64, 64, 3, seed=4)
+    assert _check_join(bind, valid, keys, payload, capacity) > 0
+
+
+def test_expand_wrap_guard_reports_capacity_plus_one(monkeypatch,
+                                                     no_launches):
+    """A count above (2^31-1)/C could wrap the int32 scan: both packages
+    report capacity + 1 instead of a count."""
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    C, capacity = 1 << 16, 16
+    bind = np.zeros((C, 1), np.int32)
+    valid = np.zeros(C, bool)
+    valid[:3] = True
+    bind[:3, 0] = [5, 6, 7]
+    keys = np.full(40000, 5, np.int32)           # 40000 > (2^31-1) / C
+    payload = np.arange(40000, dtype=np.int32)
+    assert _check_join(bind, valid, keys, payload, capacity) == capacity + 1
+    got = tspmd._expand_fixed(_t(bind), _t(valid), _t(bind[:, 0]), _t(keys),
+                              _t(payload), capacity)
+    want = jspmd._expand_fixed(jnp.asarray(bind), jnp.asarray(valid),
+                               jnp.asarray(bind[:, 0]), jnp.asarray(keys),
+                               jnp.asarray(payload), capacity)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("n,size,fill", [(50, 16, -1), (50, 64, INT32_MAX),
+                                         (40, 8, -1)])
+def test_compact_rows_matches_reference(n, size, fill):
+    rng = np.random.default_rng(n + size)
+    sel = rng.random(n) < 0.4
+    col = rng.integers(0, 99, n).astype(np.int32)
+    tab = rng.integers(0, 99, (n, 3)).astype(np.int32)
+    (gc, gt), gok = ops.compact_rows(_t(sel), (_t(col), _t(tab)), size, fill)
+    (wc, wt), wok = j_compact_rows(jnp.asarray(sel),
+                                   (jnp.asarray(col), jnp.asarray(tab)),
+                                   size, fill)
+    _eq(gc, wc)
+    _eq(gt, wt)
+    _eq(gok, wok)
+
+
+def test_wrappers_refuse_other_devices():
+    """Dispatch is by device only: no kernel for a device that is
+    neither the CPU nor CUDA, and no mixing."""
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.join_count(meta, meta)
+    with pytest.raises(ValueError):
+        ops.join_count(torch.zeros(4, dtype=torch.int32), meta)
+
+
+def test_wrappers_refuse_mismatched_shapes():
+    """The kernels index their inputs in lock step; the wrappers refuse
+    shapes that would make them read past an end."""
+    i = torch.zeros(8, dtype=torch.int32)
+    b = torch.zeros((8, 2), dtype=torch.int32)
+    v = torch.zeros(8, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        ops.join_count(b, i)
+    with pytest.raises(ValueError):
+        ops.pair_semijoin(i, i[:4], i, i)
+    with pytest.raises(ValueError):
+        ops.dedup_rows(b, v[:4])
+    with pytest.raises(ValueError):
+        ops.fused_join(b, v, i[:4], i, i, 4)
+    with pytest.raises(ValueError):
+        ops.fused_join(b, v, i, i, i[:4], 4)
+    with pytest.raises(ValueError):
+        ops.fused_join(b, v, i, i, i, -1)
