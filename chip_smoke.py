@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases, each fatal on any error or mismatch:
 
-1. the card's name and power limit; build the CUDA join kernels from
+1. the card's name and power limit; build the six CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
    together).
 2. offline phase at full width: ``generate_watdiv(9_000_000, seed=1)``
@@ -15,18 +15,32 @@ Phases, each fatal on any error or mismatch:
    bound admits), ``generate_workload(graph, 400, seed=2)`` and a
    4-site vertical plan, served by ``Session(plan, backend="spmd")`` on
    the card.
-3. kernels: each kernel against its plain PyTorch version on the card,
+3. join kernels: each against its plain PyTorch version on the card,
    at the main path's shapes (binding tables of 4 x 4096 up to 4 x 2^18
    rows, 2 to 6 columns, the store's largest property window) and on
    the edge cases of the reference's kernel tests; all comparisons are
-   exact (int32 / bool).  Times: the wrapper, its plain version and,
-   where one PyTorch call computes the same function, that call.
+   exact (int32 / bool).  ``semijoin``, on no path, is checked at the
+   same shapes.  Times: the wrapper, its plain version and, where one
+   PyTorch call computes the same function, that call.
 4. serve: launch counters reset, WatDiv template queries with one term
    bound to a data constant plus a star, a chain and a cycle, counters
    read; every answer set equals the same engine run on the plain
    versions, a subset equals the host ``match_pattern``, and every
    kernel of the path launched.
-5. the kernels as one JSON line, the card line, and last the result.
+5. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
+   prefill shape, the JAX package's attention sweep in float32 and
+   bf16, rows with no visible key, one layer at 1 x 32768), each held to
+   the JAX package's elementwise tolerance and to a row-relative bound,
+   which controls (an all-zero output, one KV tile dropped) must fail;
+   qwen3-1.7b built at its published width and depth with seeded random
+   weights; the prefill forward at 2 x 4096 through the kernel (28
+   launches; the last layer's output checked on the strided q, k, v the
+   model passes) against the same forward on plain attention; ``serve()`` for 4
+   requests (prompt 128, gen 32); the kernel-backed forward over the
+   served prompts against the serve step's logits at the last prompt
+   token; a profile of the forward and of 8 decode steps.
+6. the kernels as one JSON line (each with the path it launched on and
+   its launches there), the card line, and last the result.
 """
 from __future__ import annotations
 
@@ -61,17 +75,55 @@ SHAPE_PROPS = ("follows", "locatedIn", "friendOf",
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12     # H100 SXM non-tensor 32-bit rate
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 
-KERNELS = {   # name -> (source, TPU kernel it replaces)
+KERNELS = {   # name -> (source, TPU kernel it replaces, path it serves)
     "join_count": ("src/repro_torch/kernels/csrc/join_count.cu",
-                   "src/repro/kernels/semijoin.py:63"),
+                   "src/repro/kernels/semijoin.py:63", "spmd"),
     "pair_semijoin": ("src/repro_torch/kernels/csrc/pair_semijoin.cu",
-                      "src/repro/kernels/semijoin.py:80"),
+                      "src/repro/kernels/semijoin.py:80", "spmd"),
     "dedup_rows": ("src/repro_torch/kernels/csrc/dedup_rows.cu",
-                   "src/repro/kernels/semijoin.py:239"),
+                   "src/repro/kernels/semijoin.py:239", "spmd"),
     "fused_join": ("src/repro_torch/kernels/csrc/fused_join.cu",
-                   "src/repro/kernels/semijoin.py:270"),
+                   "src/repro/kernels/semijoin.py:270", "spmd"),
+    # on no path: only the JAX package's kernel tests and exports use it
+    "semijoin": ("src/repro_torch/kernels/csrc/semijoin.cu",
+                 "src/repro/kernels/semijoin.py:39", None),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:36", "lm"),
 }
+
+# LM phase: qwen3-1.7b at its published width and depth, random weights
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_SEQ = 2, 4096       # prefill forward (cut from 32 x 32768)
+LM_LONG, LM_LONG_CHECKED = 32768, 512   # one layer's attention, timed
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+LOGIT_TOL = 0.25                 # the JAX package's bf16 model tolerance
+# the JAX package's attention sweep (tests/test_kernels.py ATTN_CASES):
+# B, Hq, Hkv, Sq, Skv, D, causal, window
+ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, None),
+              (2, 8, 8, 128, 128, 32, True, None),
+              (1, 4, 1, 256, 256, 64, True, 128),
+              (1, 2, 2, 200, 200, 64, True, None),
+              (1, 4, 4, 128, 384, 64, True, None),
+              (1, 8, 2, 512, 512, 128, True, None),
+              (1, 4, 4, 256, 256, 64, True, 64)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}   # atol = rtol
+# The JAX tolerance was set for its sweep (S <= 512), where outputs are
+# about 10x larger than at the model's lengths: at S = 32768 a row reads
+# about 0.009, under 4e-2.  So every comparison is also held to a bound
+# scaled to what is compared: per query row, ||got - want|| / ||want||
+# (rows with no visible key must be 0 exactly).  For bf16 that is four
+# units in the last place of the row's size (2^-6 against bf16's 2^-8);
+# controls that zero the output or drop one KV tile must fail it.  On an
+# H100 the kernel's row errors reach 4.8e-3 (bf16) and 8.2e-7 (float32),
+# the controls' 0.20 and more (PERF.md).
+ATTN_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# shapes the sweep leaves out: no causal mask (with and without a
+# window, Sq < Skv and Sq > Skv) and an empty key sequence
+ATTN_EXTRA = [(1, 4, 2, 100, 300, 64, False, None),
+              (1, 4, 2, 300, 100, 32, False, 40),
+              (1, 2, 1, 16, 0, 16, True, None)]
 
 
 def fail(msg: str) -> None:
@@ -102,9 +154,19 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, ops: float):
+def host_s(fn: Callable[[], object]) -> float:
+    """Seconds of one call of ``fn`` on the host clock, the card
+    synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -138,6 +200,7 @@ def kernel_phase(store) -> Dict[str, dict]:
     numbers for the JSON line."""
     from repro_torch.constants import INT32_SENTINEL
     from repro_torch.kernels import ops, ref
+    INT32_MIN = int(np.iinfo(np.int32).min)
     dev = store.device
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -161,7 +224,8 @@ def kernel_phase(store) -> Dict[str, dict]:
     kmin, kmax = int(keys[0]), int(keys[stop - start - 1])
     print(f"kernel shapes: largest window T={T} (property {prop}, "
           f"site {j}, {stop - start} live rows)", flush=True)
-    out = {name: {"max_abs_err": 0} for name in KERNELS}
+    out = {name: {"max_abs_err": 0}
+           for name, (_src, _tpu, path) in KERNELS.items() if path != "lm"}
 
     def rec(name, err):
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
@@ -179,6 +243,22 @@ def kernel_phase(store) -> Dict[str, dict]:
             rec("join_count", _max_err(ops.join_count(probe, k),
                                        ref.join_count_ref(probe, k),
                                        f"join_count C={C} T={k.numel()}"))
+        # semijoin: the same probes against the window (duplicate keys,
+        # INT32_MAX pads), an INT32_MIN-padded and an all-pad table, and
+        # empty sides
+        min_padded = torch.cat([torch.full((T // 4,), INT32_MIN,
+                                           dtype=torch.int32, device=dev),
+                                keys[:stop - start]])
+        for q_, k in ((probe, keys), (probe, min_padded),
+                      (probe, sentinel_keys), (probe, keys[:0]),
+                      (probe[:0], keys)):
+            got = ops.semijoin(q_, k)
+            rec("semijoin", _max_err(got, ref.semijoin_mask_ref(q_, k),
+                                     f"semijoin C={q_.numel()} "
+                                     f"T={k.numel()}"))
+            if bool((got != torch.isin(q_, k)).any()):
+                fail(f"semijoin C={q_.numel()} T={k.numel()}: differs "
+                     f"from torch.isin")
         # pair_semijoin: (s, o) pairs of the window in object order
         pick = ints(0, stop - start, C).long()
         q_s = torch.where(ints(0, 2, C) == 0, keys[pick], ints(kmin, kmax + 1, C))
@@ -258,6 +338,10 @@ def kernel_phase(store) -> Dict[str, dict]:
     # survivors and their expansion, for the fused join's data-dependent
     # bytes: capacity rows written
     n_keep = int(ref.dedup_rows_ref(bind, valid).sum())
+
+    def pair_key(s_, o_):   # the composed s * 2^21 + o int64 key
+        return s_.to(torch.int64) * (1 << 21) + o_.to(torch.int64)
+
     cases = {
         "join_count": (lambda: ops.join_count(probe, keys),
                        lambda: ref.join_count_ref(probe, keys),
@@ -266,7 +350,13 @@ def kernel_phase(store) -> Dict[str, dict]:
                        (2 * C + T) * 4, C * 2 * lg),
         "pair_semijoin": (lambda: ops.pair_semijoin(q_s, q_o, t_s, objs),
                           lambda: ref.pair_semijoin_ref(q_s, q_o, t_s, objs),
-                          None, (C + T) * 8 + C, (C * 2 + T * 2) * lg),
+                          lambda: torch.isin(pair_key(q_s, q_o),
+                                             pair_key(t_s, objs)),
+                          (C + T) * 8 + C, (C * 2 + T * 2) * lg),
+        "semijoin": (lambda: ops.semijoin(probe, keys),
+                     lambda: ref.semijoin_mask_ref(probe, keys),
+                     lambda: torch.isin(probe, keys),
+                     (C + T) * 4 + C, C * lg),
         "dedup_rows": (lambda: ops.dedup_rows(bind, valid),
                        lambda: ref.dedup_rows_ref(bind, valid), None,
                        C * V * 4 + 2 * C, C * 6 * V),
@@ -389,28 +479,345 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     return launches
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke runs on the "
-              "card only", file=sys.stderr)
-        sys.exit(1)
+# ----------------------------------------------------------------------
+# LM phase
+# ----------------------------------------------------------------------
+
+def _attn_gaps(got: torch.Tensor, want: torch.Tensor):
+    """(largest absolute error, largest row-relative error): the second
+    is ||got - want|| / ||want|| over the last dimension, the largest of
+    all query rows; a row whose ``want`` is 0 (no visible key) counts 0
+    where ``got`` is 0 there too, else infinity."""
+    if got.shape != want.shape:
+        fail(f"flash_attention: shape {tuple(got.shape)} != "
+             f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0, 0.0
+    diff = got.float() - want.float()
+    dn, wn = diff.norm(dim=-1), want.float().norm(dim=-1)
+    rel = torch.where(wn > 0, dn / wn.clamp_min(1e-30),
+                      torch.where(dn > 0, float("inf"), 0.0))
+    return float(diff.abs().max()), float(rel.max())
+
+
+def _attn_passes(got: torch.Tensor, want: torch.Tensor,
+                 dtype: torch.dtype) -> bool:
+    """Both gates: the JAX package's elementwise tolerance for the type
+    (atol = rtol) and the row-relative bound ``ATTN_ROW_TOL``."""
+    if not bool(torch.isfinite(got).all()):
+        return False
+    tol = ATTN_TOL[dtype]
+    g, w = got.float(), want.float()
+    if bool(((g - w).abs() > tol + tol * w.abs()).any()):
+        return False
+    return _attn_gaps(got, want)[1] <= ATTN_ROW_TOL[dtype]
+
+
+def _attn_close(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+                what: str):
+    """Hold the flash kernel's output against its plain version's
+    (``_attn_passes``); returns (largest absolute error, largest
+    row-relative error)."""
+    gaps = _attn_gaps(got, want)
+    if not _attn_passes(got, want, dtype):
+        fail(f"flash_attention {what}: max abs error {gaps[0]}, max "
+             f"row-relative error {gaps[1]} (limits: atol = rtol = "
+             f"{ATTN_TOL[dtype]}, row {ATTN_ROW_TOL[dtype]}), or non-finite")
+    return gaps
+
+
+def _attn_controls(want: torch.Tensor, dropped: torch.Tensor,
+                   dtype: torch.dtype, what: str) -> None:
+    """The gate must reject a wrong kernel: an all-zero output, and
+    ``dropped``, the plain version with one KV tile left out.  Prints
+    whether the elementwise tolerance alone would have accepted each."""
+    from unittest import mock
+    alone = []
+    for name, bad in (("zeros", torch.zeros_like(want)),
+                      ("one KV tile dropped", dropped)):
+        if _attn_passes(bad, want, dtype):
+            fail(f"flash_attention {what}: the gate accepts the control "
+                 f"'{name}'")
+        with mock.patch.dict(ATTN_ROW_TOL, {dtype: float("inf")}):
+            if _attn_passes(bad, want, dtype):
+                alone.append(name)
+    print(f"flash_attention {what}: controls rejected (zeros: row error "
+          f"{_attn_gaps(torch.zeros_like(want), want)[1]:.3e}; one KV tile "
+          f"dropped: {_attn_gaps(dropped, want)[1]:.3e}); the elementwise "
+          f"tolerance alone accepts {alone or 'none'}", flush=True)
+
+
+def _attn_err(q, k, v, window, what, causal=True):
+    from repro_torch.kernels import ops, ref
+    return _attn_close(ops.attention(q, k, v, causal=causal, window=window),
+                       ref.attention_ref(q, k, v, causal, window), q.dtype,
+                       what)
+
+
+def _drop_kv_tile(k: torch.Tensor, start: int, tile: int = 64):
+    """k (or v) without keys [start, start + tile): through the plain
+    version's end-of-timeline alignment, the attention of every query
+    that saw those keys, without them (a kernel that skipped the
+    tile)."""
+    return torch.cat([k[:, :, :start], k[:, :, start + tile:]], dim=2)
+
+
+def _attn_bound(B, Hq, Hkv, Sq, Skv, D, elem):
+    """Bytes (q, k, v read once, o written once) and the FLOP of the two
+    products over the visible (query, key) pairs of a causal run."""
+    off = Skv - Sq
+    pairs = sum(max(0, min(Skv, i + off + 1)) for i in range(Sq))
+    nbytes = (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * elem
+    return bound(nbytes, 4.0 * B * Hq * D * pairs, BF16_OPS_PER_S)
+
+
+def attention_phase(dev: str = "cuda") -> dict:
+    """flash_attention against its plain version on the card: the
+    model's prefill shape, the JAX package's sweep in float32 and bf16,
+    rows with no visible key, and one layer at 1 x 32768 (its last 512
+    query rows compared).  Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM_ARCH).config
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(B, Hq, Hkv, Sq, Skv, D, dtype):
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+                for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                              (B, Hkv, Skv, D))]
+
+    gaps: Dict[torch.dtype, List[tuple]] = {torch.float32: [],
+                                            torch.bfloat16: []}
+
+    def check(a, window, what, causal=True):
+        gaps[a[0].dtype].append(_attn_err(*a, window, what, causal))
+
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shape = (LM_BATCH, H, Hkv, LM_SEQ, LM_SEQ, D)
+    q, k, v = qkv(*shape, torch.bfloat16)
+    check((q, k, v), None, f"model shape {shape} bf16")
+    _attn_controls(ref.attention_ref(q, k, v),
+                   ref.attention_ref(q, _drop_kv_tile(k, 0),
+                                     _drop_kv_tile(v, 0)),
+                   torch.bfloat16, f"model shape {shape}")
+    for case in ATTN_CASES + ATTN_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            check(qkv(*case[:6], dtype), case[7], f"{case} {dtype}",
+                  causal=case[6])
+    for window in (None, 16):       # Sq > Skv: 128 rows see no key
+        for dtype in (torch.float32, torch.bfloat16):
+            a = qkv(1, 4, 2, 256, 128, 32, dtype)
+            check(a, window, f"no visible key, window {window} {dtype}")
+            if bool(ops.attention(*a, window=window)[:, :, :128].any()):
+                fail("flash_attention: a row with no visible key is not 0")
+    print(f"flash_attention checks: {sum(map(len, gaps.values()))} cases; "
+          + "; ".join(f"{dt}: max abs error {max(g[0] for g in gl):.3e}, "
+                      f"max row-relative error {max(g[1] for g in gl):.3e}"
+                      for dt, gl in gaps.items()), flush=True)
+
+    rec = {"max_abs_err": max(g[0] for gl in gaps.values() for g in gl)}
+    bms, by = _attn_bound(*shape, 2)
+    rec.update(
+        ms=cuda_ms(lambda: ops.attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), reps=3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bound_ms=bms, bound_by=by)
+    print(f"kernel flash_attention: kernel_ms={rec['ms']:.4f} "
+          f"plain_ms={rec['plain_ms']:.4f} library_ms="
+          f"{rec['library_ms']:.4f} bound_ms={bms:.5f} ({by}) at "
+          f"B={LM_BATCH} Hq={H} Hkv={Hkv} S={LM_SEQ} D={D} bf16 causal",
+          flush=True)
+    del q, k, v
+
+    # one layer at the prefill_32k length; the plain version's fp32
+    # scores at full length would not fit, so only the last rows are
+    # compared, through its Sq = 512, Skv = 32768 form
+    q, k, v = qkv(1, H, Hkv, LM_LONG, LM_LONG, D, torch.bfloat16)
+    q_last = q[:, :, -LM_LONG_CHECKED:]
+    want = ref.attention_ref(q_last, k, v)
+    err, rel = _attn_close(ops.attention(q, k, v)[:, :, -LM_LONG_CHECKED:],
+                           want, torch.bfloat16, f"S={LM_LONG}, last rows")
+    mid = LM_LONG // 2
+    _attn_controls(want, ref.attention_ref(q_last, _drop_kv_tile(k, mid),
+                                           _drop_kv_tile(v, mid)),
+                   torch.bfloat16, f"S={LM_LONG}, last rows")
+    del want
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    bms, by = _attn_bound(1, H, Hkv, LM_LONG, LM_LONG, D, 2)
+    long_ms = cuda_ms(lambda: ops.attention(q, k, v), reps=3)
+    long_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=3)
+    print(f"kernel flash_attention at B=1 S={LM_LONG}: kernel_ms="
+          f"{long_ms:.4f} library_ms={long_lib:.4f} bound_ms={bms:.5f} "
+          f"({by}); last {LM_LONG_CHECKED} rows max abs error {err:.3e}, "
+          f"max row-relative error {rel:.3e}", flush=True)
+    return rec
+
+
+def device_profile(fn: Callable[[], object], what: str) -> None:
+    """Device busy share of one call of ``fn``: the summed durations of
+    the device-side events ``torch.profiler`` records (kernels, copies,
+    fills; one stream, so they do not overlap) over the host-clock wall
+    time of the call; and the five largest kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = host_s(fn)
+    by_name: Dict[str, List[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy_us = sum(sum(v) for v in by_name.values())
+    if busy_us <= 0:
+        print(f"profile {what}: device busy share not measured (the "
+              f"profiler recorded no device time)", flush=True)
+        return
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    print(f"profile {what}: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / 1e4 / wall:.1f}%); top "
+          "kernels: " + "; ".join(
+              f"{name[:60]} {sum(v) / 1e3:.2f} ms x{len(v)}"
+              for name, v in top), flush=True)
+
+
+def lm_phase(card: str, dev: str = "cuda") -> dict:
+    """qwen3-1.7b at full width and depth on the card: the flash
+    kernel's checks, the prefill forward through the kernel against the
+    same forward on plain attention, then ``serve()`` and the forward
+    against the serve step's logits.  Returns the flash record with its
+    launches on the forward."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import build_lm, get_api, param_count
+    from repro_torch.models.lm import lm_defs
+
+    # float32 products in full float32 for the float32 checks (the
+    # default, stated): TF32 would round beyond their 2e-5 tolerance
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    rec = attention_phase(dev)
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config, use_flash_kernel=True)
+    t0 = time.perf_counter()
+    model = build_lm(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"lm: {cfg.name}, param_count={param_count(lm_defs(cfg))}, "
+          f"{nbytes} bytes of weights, built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def max_diff(a, b):
+        return max(float((a[i].float() - b[i].float()).abs().max())
+                   for i in range(a.shape[0]))
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    forward = make_forward_step(cfg)
+    # the kernel's inputs and output in the last layer of the counted
+    # forward: the strided head-transposed views the model passes
+    seen = []
+    real_attention = ops.attention
+
+    def keep_last(q, k, v, **kw):
+        out = real_attention(q, k, v, **kw)
+        seen[:] = [(q, k, v, out, kw)]
+        return out
+
+    ops.reset_launches()
+    with mock.patch.object(ops, "attention", keep_last):
+        logits = forward(model, toks)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    q, k, v, out, kw = seen[0]
+    if q.is_contiguous() or k.is_contiguous() or v.is_contiguous():
+        fail("flash_attention: the forward passed contiguous q, k, v")
+    err, rel = _attn_close(out, ref.attention_ref(q, k, v, **kw),
+                           torch.bfloat16, "last layer of the forward")
+    print(f"flash_attention on the last layer's q, k, v of the forward "
+          f"(strides {q.stride()}, {k.stride()}): max abs error {err:.3e}, "
+          f"max row-relative error {rel:.3e}", flush=True)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    del q, k, v, out, seen
+    print(f"launches on the LM forward: {launches}", flush=True)
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} "
+             f"times in a {cfg.num_layers}-layer forward")
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"forward logits: shape {tuple(logits.shape)} or non-finite")
+    plain_forward = make_forward_step(
+        dataclasses.replace(cfg, use_flash_kernel=False))
+    ops.reset_launches()
+    plain_logits = plain_forward(model, toks)
+    if any(ops.LAUNCHES.values()):
+        fail(f"kernels launched in the plain forward: {ops.LAUNCHES}")
+    diff = max_diff(logits, plain_logits)
+    del logits, plain_logits
+    # warm timings (the first calls above also paid for cuBLAS set-up)
+    t_fwd = host_s(lambda: forward(model, toks))
+    t_plain = host_s(lambda: plain_forward(model, toks))
+    print(f"forward ({card}): {LM_BATCH}x{LM_SEQ} tokens in {t_fwd:.3f} s "
+          f"({LM_BATCH * LM_SEQ / t_fwd:.1f} tok/s) through the kernel, "
+          f"{t_plain:.3f} s on plain attention (warm, host clock); logits "
+          f"max abs difference {diff:.4f}", flush=True)
+    if diff > LOGIT_TOL:
+        fail(f"forward logits differ from plain attention by {diff}")
+    device_profile(lambda: forward(model, toks), f"forward {LM_BATCH}x{LM_SEQ}")
+
+    r = serve(LM_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              gen_len=SERVE_GEN, smoke=False, seed=0, device=dev,
+              model=model)
+    if r.tokens.shape != (SERVE_BATCH, SERVE_GEN) or r.tokens.min() < 0 \
+            or r.tokens.max() >= cfg.vocab_size:
+        fail(f"serve tokens: shape {r.tokens.shape}, range "
+             f"[{r.tokens.min()}, {r.tokens.max()}]")
+    print(f"serve ({card}): {SERVE_BATCH} requests, prompt {SERVE_PROMPT}, "
+          f"gen {SERVE_GEN}: prefill {r.prefill_sec:.3f} s "
+          f"({SERVE_BATCH * SERVE_PROMPT / r.prefill_sec:.1f} tok/s), "
+          f"decode {r.decode_sec:.3f} s ({r.tokens_per_sec:.1f} tok/s)",
+          flush=True)
+    # the kernel-backed forward over the served prompts against the
+    # serve step's logits at the last prompt token
+    prompts = torch.from_numpy(make_prompts(
+        cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)).to(dev)
+    last = forward(model, prompts)[:, -1]
+    api = get_api(cfg)
+    cache = api.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
+    for t in range(SERVE_PROMPT):
+        step_logits, cache = api.decode(cfg, model, prompts[:, t], cache, t)
+    diff = max_diff(last, step_logits)
+
+    def decode_steps():
+        for t in range(SERVE_PROMPT - 8, SERVE_PROMPT):
+            api.decode(cfg, model, prompts[:, t], cache, t)
+    device_profile(decode_steps, f"8 decode steps at batch {SERVE_BATCH}")
+    print(f"serve step vs forward at the last prompt token: logits max abs "
+          f"difference {diff:.4f}", flush=True)
+    if diff > LOGIT_TOL:
+        fail(f"forward and serve step logits differ by {diff}")
+    print(f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes "
+          f"in the LM phase ({card})", flush=True)
+    rec["launches"] = launches["flash_attention"]
+    return rec
+
+
+def spmd_phase(card: str) -> Dict[str, dict]:
+    """Phases 2 to 4: the WatDiv plan, the join kernels and the served
+    queries.  Returns the records of the kernels checked against the
+    store, with their launches on the serve path."""
     from repro_torch.core import (PartitionConfig, Session, build_plan,
                                   generate_watdiv, generate_workload)
-    from repro_torch.kernels import build
-
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    secs = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(secs)} "
-          f"kernels (per kernel: "
-          f"{ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
-    for name in build.SOURCES:
-        log = build._library_path(name).with_suffix(".log")
-        info = [ln for ln in log.read_text().splitlines() if "registers" in ln]
-        print(f"ptxas {name}: " + " | ".join(ln.strip() for ln in info),
-              flush=True)
-
     t0 = time.perf_counter()
     graph = generate_watdiv(TRIPLES, seed=1)
     t_graph = time.perf_counter() - t0
@@ -437,17 +844,45 @@ def main() -> None:
     launches = serve_phase(session, plain, graph, queries, card)
     print(f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
           f"bytes ({card})", flush=True)
-    missing = [k for k in KERNELS if launches[k] <= 0]
+    missing = [k for k, (_s, _t, path) in KERNELS.items()
+               if path == "spmd" and launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
-    for k in KERNELS:
+    for k in kernels:
         kernels[k]["launches"] = launches[k]
+    return kernels
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs on the "
+              "card only", file=sys.stderr)
+        sys.exit(1)
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(secs)} "
+          f"kernels (per kernel: "
+          f"{ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
+    for name in build.SOURCES:
+        log = build._library_path(name).with_suffix(".log")
+        info = [ln for ln in log.read_text().splitlines() if "registers" in ln]
+        print(f"ptxas {name}: " + " | ".join(ln.strip() for ln in info),
+              flush=True)
+
+    kernels = spmd_phase(card)
+    torch.cuda.empty_cache()
+    kernels["flash_attention"] = lm_phase(card)
 
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, path) in KERNELS.items():
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": k["launches"],
+                     "replaces": replaces, "path": path or "none",
+                     "launches": k["launches"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],

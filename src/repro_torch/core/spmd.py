@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..constants import INT32_SENTINEL
+from ..device import resolve_device
 from ..kernels import ref as kref
 from ..kernels.ops import (compact_rows, dedup_rows, fused_join, join_count,
                            pair_semijoin)
@@ -55,19 +56,6 @@ from .query import PROP_VAR, QueryGraph, _connected_edge_order
 from .routing import RoutePlan, plan_route, route_prop_complete
 
 _I32 = torch.int32
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device an entry point runs on.  A CUDA device must exist: the
-    port never moves to the CPU unless the caller asks for it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; pass "
-            f"device='cpu' to run the plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Hand-written CUDA join kernels (``csrc/``), their wrappers
-(``ops``) and plain PyTorch versions (``ref``)."""
-from .ops import (LAUNCHES, compact_rows, dedup_rows, fused_join,
-                  join_count, pair_semijoin, reset_launches)
+"""Hand-written CUDA kernels (``csrc/``: the joins and flash
+attention), their wrappers (``ops``) and plain PyTorch versions
+(``ref``)."""
+from .ops import (LAUNCHES, attention, compact_rows, dedup_rows, fused_join,
+                  join_count, pair_semijoin, reset_launches, semijoin)
 
-__all__ = ["LAUNCHES", "compact_rows", "dedup_rows", "fused_join",
-           "join_count", "pair_semijoin", "reset_launches"]
+__all__ = ["LAUNCHES", "attention", "compact_rows", "dedup_rows",
+           "fused_join", "join_count", "pair_semijoin", "reset_launches",
+           "semijoin"]

@@ -1,4 +1,4 @@
-"""Build and load the CUDA join kernels.
+"""Build and load the CUDA kernels (the joins and flash attention).
 
 Each kernel source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, loaded with
@@ -26,15 +26,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 SOURCES = {"join_count": "join_count.cu",
            "pair_semijoin": "pair_semijoin.cu",
            "dedup_rows": "dedup_rows.cu",
-           "fused_join": "fused_join.cu"}
+           "fused_join": "fused_join.cu",
+           "semijoin": "semijoin.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 #: C entry point and argument types of each kernel (pointers and the
-#: stream as void*, sizes as int); every entry point returns the
-#: cudaError_t of its launches
+#: stream as void*, sizes as int, strides as long long); every entry
+#: point returns the cudaError_t of its launches
 SIGNATURES = {
     "join_count": ("rt_join_count", (_P, _I, _P, _I, _P, _P)),
     "pair_semijoin": ("rt_pair_semijoin", (_P, _P, _I, _P, _P, _I, _P, _P)),
@@ -42,6 +45,11 @@ SIGNATURES = {
     "fused_join": ("rt_fused_join",
                    (_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P, _P, _P)),
+    "semijoin": ("rt_semijoin", (_P, _I, _P, _I, _P, _P)),
+    "flash_attention": ("rt_flash_attention",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                         _I, _I, _F, _I, _P)),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
@@ -54,7 +62,7 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA join kernels are "
+        raise RuntimeError("nvcc not found: the CUDA kernels are "
                            "built from source and need the CUDA toolkit")
     return found
 
@@ -98,7 +106,7 @@ def build_all() -> Dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for the CUDA join kernels:\n"
+        raise RuntimeError("nvcc failed for the CUDA kernels:\n"
                            + "\n".join(failed))
     return secs
 

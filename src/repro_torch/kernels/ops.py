@@ -1,4 +1,4 @@
-"""Public wrappers around the CUDA join kernels.
+"""Public wrappers around the CUDA kernels.
 
 Each wrapper dispatches on the device of its tensors and on nothing
 else: tensors on the CPU go to the plain version in ``ref.py``; tensors
@@ -13,7 +13,8 @@ the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,7 +25,8 @@ _I32 = torch.int32
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"join_count": 0, "pair_semijoin": 0,
-                            "dedup_rows": 0, "fused_join": 0}
+                            "dedup_rows": 0, "fused_join": 0, "semijoin": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -133,6 +135,21 @@ def join_count(probe: torch.Tensor, keys_sorted: torch.Tensor
     return out
 
 
+def semijoin(queries: torch.Tensor, table_sorted: torch.Tensor
+             ) -> torch.Tensor:
+    """mask[i] = ``queries[i]`` occurs in the ascending int32 column
+    ``table_sorted``; empty sides give an all-False mask."""
+    _vectors("semijoin", queries)
+    _vectors("semijoin", table_sorted)
+    if not _on_card("semijoin", queries, table_sorted):
+        return ref.semijoin_mask_ref(queries, table_sorted)
+    queries = _i32("semijoin", queries)
+    table = _i32("semijoin", table_sorted)
+    out = torch.empty(queries.shape, dtype=torch.bool, device=queries.device)
+    _launch("semijoin", queries, queries.numel(), table, table.numel(), out)
+    return out
+
+
 def pair_semijoin(q_s: torch.Tensor, q_o: torch.Tensor,
                   t_s: torch.Tensor, t_o: torch.Tensor) -> torch.Tensor:
     """mask[i] = some table row r has (t_s[r], t_o[r]) == (q_s[i],
@@ -212,3 +229,54 @@ def fused_join(bind: torch.Tensor, valid: torch.Tensor, probe: torch.Tensor,
             keys.numel(), capacity, slots, H, slot_of, lo, cnt, start,
             tile_sums, scalars, out_bind, out_col, out_valid, over)
     return out_bind, out_col, out_valid, over[0]
+
+
+#: head dims the flash kernel is built for
+ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel can read it in place (last dimension
+    contiguous, every stride and the base 16-byte aligned), else a
+    fresh contiguous copy (a new allocation, so aligned)."""
+    if t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention with grouped-query
+    heads: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in
+    q.dtype.  Queries occupy the last Sq positions of the timeline; a
+    row that sees no key is 0 (``ref.attention_ref``).  On the card:
+    bf16 or float32, D in ``ATTENTION_HEAD_DIMS``, any Sq and Skv."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
+            or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"attention: expected q [B, Hq, Sq, D] and k, v "
+                         f"[B, Hkv, Skv, D] with Hq % Hkv == 0, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"attention: window must be >= 1, got {window}")
+    if not _on_card("attention", q, k, v):
+        return ref.attention_ref(q, k, v, causal, window, scale)
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention: expected bf16 or float32 q, k, v of "
+                        f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {D} not in "
+                         f"{ATTENTION_HEAD_DIMS}")
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    _launch("flash_attention", q, k, v, out, B, Hq, Hkv, Sq, Skv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            window or 0, scale if scale is not None else 1.0 / math.sqrt(D),
+            int(q.dtype == torch.bfloat16))
+    return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the hand-written join kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 These are the semantics of record: ``kernels.ops`` runs them for
 tensors on the CPU, the tests compare them with the JAX package's
@@ -9,7 +9,8 @@ sorts, last key first.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +27,19 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     for k in keys:                      # least significant key first
         order = order[torch.argsort(k[order], stable=True)]
     return order
+
+
+def semijoin_mask_ref(queries: torch.Tensor, table_sorted: torch.Tensor
+                      ) -> torch.Tensor:
+    """mask[i] = any(table == queries[i]) over the ascending table;
+    empty sides give an all-False mask.  Pads (INT32_MIN or INT32_MAX)
+    match only a query equal to the pad, which real ids never are."""
+    if table_sorted.shape[0] == 0:
+        return torch.zeros(queries.shape, dtype=torch.bool,
+                           device=queries.device)
+    pos = torch.searchsorted(table_sorted, queries)
+    pos = pos.clamp(max=table_sorted.shape[0] - 1)
+    return table_sorted[pos] == queries
 
 
 def join_count_ref(probe: torch.Tensor, keys_sorted: torch.Tensor
@@ -158,3 +172,33 @@ def fused_join_ref(bind: torch.Tensor, valid: torch.Tensor,
     db, dv, order = dedup_padded_ref(bind, valid)
     return expand_fixed_ref(db, dv, probe[order], keys_sorted, payload,
                             capacity)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Reference attention, float32 inside.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; Hq % Hkv == 0 (GQA: query
+    head h reads KV head h // (Hq // Hkv)).  Queries occupy the last Sq
+    positions of the Skv timeline; key j is visible to query position i
+    iff j <= i (causal) and i - window < j (sliding window).  A row
+    that sees no key is 0.  Returns [B, Hq, Sq, D] in q.dtype.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s.masked_fill_(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num_(nan=0.0)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

@@ -1,0 +1,7 @@
+"""LM model stack (dense family) as PyTorch modules."""
+from .common import ModelConfig, ParamDef, init_params, param_count
+from .lm import LM, build_lm
+from .registry import ModelApi, get_api
+
+__all__ = ["LM", "ModelApi", "ModelConfig", "ParamDef", "build_lm",
+           "get_api", "init_params", "param_count"]

@@ -1,0 +1,169 @@
+"""Model-stack foundations: the config, parameter definitions and the
+shared layers (RMSNorm, RoPE, logit softcap).
+
+Parameters are declared once as ``ParamDef`` trees (nested dicts), as in
+the JAX package; the modules of ``layers.py`` and ``lm.py`` register one
+``nn.Parameter`` per definition and ``init_params`` fills them from an
+explicit ``torch.Generator``.  The JAX package's sharding rules engine
+and rematerialisation have no counterpart here: the port runs on one
+device and only serves.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+# ======================================================================
+# Config
+# ======================================================================
+
+@dataclasses.dataclass
+class ModelConfig:
+    """Field names follow the JAX package's ``ModelConfig``, restricted
+    to the dense transformer family that is ported.  The options of the
+    families still to port (MoE, the sliding-window cache, ``qkv_bias``,
+    ``sq_relu``, ``embed_inputs``) have no field: a config that sets one
+    is refused when it is made."""
+    name: str = "model"
+    family: str = "dense"          # dense | moe | rwkv | hybrid
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    head_dim: int = 64
+    d_ff: int = 256
+    vocab_size: int = 256
+    # attention options
+    qk_norm: bool = False          # qwen3
+    rope_theta: float = 1e4
+    # io
+    tie_embeddings: bool = False
+    logit_softcap: Optional[float] = None
+    # numerics
+    dtype: torch.dtype = torch.bfloat16
+    norm_eps: float = 1e-5
+    use_flash_kernel: bool = False  # attention through kernels.ops
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+# ======================================================================
+# ParamDef trees
+# ======================================================================
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]     # logical axis per dim (documentation)
+    init: str = "normal"                # normal | zeros | ones
+    scale: float = 1.0                  # stddev multiplier for normal
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape/axes rank mismatch: shape={self.shape}, "
+                             f"axes={self.axes}")
+
+
+def iter_defs(defs: Any, prefix: str = "") -> Iterator[Tuple[str, ParamDef]]:
+    """(dotted path, ParamDef) over a tree in sorted key order (the
+    order ``jax.tree.flatten`` walks a dict)."""
+    if isinstance(defs, ParamDef):
+        yield prefix, defs
+        return
+    for key in sorted(defs):
+        yield from iter_defs(defs[key], f"{prefix}.{key}" if prefix else key)
+
+
+def param_count(defs: Any) -> int:
+    return sum(math.prod(d.shape) for _, d in iter_defs(defs))
+
+
+def register_params(module: nn.Module, defs: Dict[str, ParamDef],
+                    device: torch.device) -> None:
+    """One uninitialised, frozen ``nn.Parameter`` per definition of a
+    flat ``defs`` dict; ``module.defs`` keeps the definitions for
+    ``init_params``."""
+    module.defs = defs
+    for name, d in defs.items():
+        module.register_parameter(name, nn.Parameter(
+            torch.empty(d.shape, dtype=d.dtype, device=device),
+            requires_grad=False))
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every registered parameter by its ``ParamDef``: zeros, ones,
+    or ``normal * scale / sqrt(fan_in)`` drawn in float32 and cast, with
+    ``fan_in = shape[-2]`` for matrices and ``shape[-1]`` for vectors
+    (the rule of the JAX package's ``init_params``; the numbers differ,
+    the generators being different).  Modules are visited in
+    registration order, parameters in sorted name order, so one seed
+    gives one model."""
+    for mod in model.modules():
+        for name, d in sorted(getattr(mod, "defs", {}).items()):
+            p = getattr(mod, name)
+            if d.init == "zeros":
+                p.zero_()
+            elif d.init == "ones":
+                p.fill_(1)
+            else:
+                fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+                std = d.scale / math.sqrt(max(fan_in, 1))
+                p.copy_(torch.randn(d.shape, generator=generator,
+                                    dtype=torch.float32, device=p.device)
+                        .mul_(std))
+    return model
+
+
+# ======================================================================
+# Shared layers
+# ======================================================================
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * gamma.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [S] or [B, S].  Half-split rotation
+    (first half against second half), computed in float32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # [D/2]
+    ang = positions[..., None].float() * freqs               # [.., S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if ang.dim() == 2:                                      # [S, D/2]
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                                                   # [B, S, D/2]
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return logits
+    return torch.tanh(logits / cap) * cap

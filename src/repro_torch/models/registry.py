@@ -1,0 +1,39 @@
+"""Model API by family, as in the JAX package's registry.  Only the
+dense transformer is ported; every other family raises, naming the
+ROADMAP item that covers it.
+
+  defs(cfg)                          -> ParamDef tree (stacked layers)
+  build(cfg, device, seed)           -> the parameter module
+  apply(cfg, params, inputs)         -> (logits, aux)      [prefill]
+  init_cache(cfg, batch, max_len, device) -> decode state
+  decode(cfg, params, token, cache, pos)  -> (logits, cache)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+from . import lm as _lm
+from .common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    defs: Callable
+    build: Callable
+    apply: Callable
+    init_cache: Callable
+    decode: Callable
+
+
+_REGISTRY: Dict[str, ModelApi] = {
+    "dense": ModelApi(_lm.lm_defs, _lm.build_lm, _lm.lm_apply,
+                      _lm.lm_init_cache, _lm.lm_decode),
+}
+
+def get_api(cfg: ModelConfig) -> ModelApi:
+    if cfg.family not in _REGISTRY:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP "
+            f"queue 1 item 5); have {sorted(_REGISTRY)}")
+    return _REGISTRY[cfg.family]

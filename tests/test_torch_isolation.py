@@ -87,3 +87,25 @@ def test_entry_points_default_to_the_card():
         convert.engine_from_arrays(arrays)
     q = QueryGraph.make([(-1, -2, 0)])
     assert SpmdEngine(g, sites, device="cpu").execute(q).num_rows == 2
+
+    # the LM substrate: building the model, its cache, loading weights,
+    # the forward and the serve loop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import build_lm, get_api
+    cfg = get_arch("qwen3-1.7b").smoke
+    api = get_api(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_lm(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("qwen3-1.7b")
+    model = build_lm(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.lm_params_from_numpy({}, cfg)
+    logits = make_forward_step(cfg)(model, torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.device.type == "cpu"
+    assert serve("qwen3-1.7b", batch=1, prompt_len=2, gen_len=2,
+                 device="cpu").tokens.shape == (1, 2)
