@@ -9,7 +9,8 @@ Phases, each fatal on any error or mismatch:
 
 1. the card's name and power limit; build the six CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
-   together).
+   together); ``ptxas``' registers, spills and shared memory of every
+   kernel function (the warp-specialised flash kernel must not spill).
 2. offline phase at full width: ``generate_watdiv(9_000_000, seed=1)``
    (about 7.6M distinct triples, 1.98M vertices: the most the 21-bit id
    bound admits), ``generate_workload(graph, 400, seed=2)`` and a
@@ -19,9 +20,12 @@ Phases, each fatal on any error or mismatch:
    at the main path's shapes (binding tables of 4 x 4096 up to 4 x 2^18
    rows, 2 to 6 columns, the store's largest property window) and on
    the edge cases of the reference's kernel tests; all comparisons are
-   exact (int32 / bool).  ``semijoin``, on no path, is checked at the
-   same shapes.  Times: the wrapper, its plain version and, where one
-   PyTorch call computes the same function, that call.
+   exact (int32 / bool), ``join_range``'s ``lo`` included.  ``semijoin``,
+   on no path, is checked at the same shapes.  ``join_count``'s two
+   search modes are held exactly and timed at the serve's four
+   probe-table sizes (and on a seeded column of Zipf-length runs).
+   Times: the wrapper, its plain version and, where one PyTorch call
+   computes the same function, that call.
 4. serve: launch counters reset, WatDiv template queries with one term
    bound to a data constant plus a star, a chain and a cycle, counters
    read; every answer set equals the same engine run on the plain
@@ -35,7 +39,8 @@ Phases, each fatal on any error or mismatch:
    qwen3-1.7b built at its published width and depth with seeded random
    weights; the prefill forward at 2 x 4096 through the kernel (28
    launches; the last layer's output checked on the strided q, k, v the
-   model passes) against the same forward on plain attention; ``serve()`` for 4
+   model passes, and shown to reach the model's head merge as a view)
+   against the same forward on plain attention; ``serve()`` for 4
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
@@ -195,6 +200,72 @@ def _max_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     return err
 
 
+def device_ms(fn: Callable[[], object], reps: int = 50) -> float:
+    """Mean device time of ``fn``'s kernels over ``reps`` calls: the
+    summed durations of the device events ``torch.profiler`` records
+    (the host's launch overhead left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def join_modes(keys: torch.Tensor, live: int, ints) -> None:
+    """join_count's two search modes (direct; staged, the column's top
+    levels in shared memory), join_range and the library's searchsorted
+    pair at the serve's four probe-table sizes on the store's largest
+    window, and at the largest on a seeded column of Zipf-length runs;
+    each mode held exactly against the plain version, lo included.  The
+    wrapper's threshold between the modes (``ops.JOIN_STAGE_MIN_PROBES``)
+    is read from the device times (the host's launch cost is the same
+    for both); ``*_ms`` include it (CUDA events over back-to-back
+    calls)."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(4)
+    runs = np.minimum(rng.zipf(1.6, size=keys.numel()), 50000)
+    zipf = np.repeat(np.arange(runs.size, dtype=np.int64) * 3,
+                     runs)[:keys.numel()].astype(np.int32)
+    columns = [("store window", keys, live, c) for c in
+               (4096, 1 << 14, 1 << 16, 1 << 18)]
+    columns.append(("Zipf runs", torch.from_numpy(zipf).to(keys.device),
+                    keys.numel(), 1 << 18))
+    for what, col, n_live, cap in columns:
+        C = SITES * cap
+        probe = torch.where(ints(0, 2, C) == 0, col[ints(0, n_live, C).long()],
+                            ints(int(col[0]), int(col[n_live - 1]) + 1, C))
+        want = ref.join_range_ref(probe, col)
+        times = {}
+        for mode, stage_min in (("direct", C + 1), ("staged", 0)):
+            for got, w, part in zip(ops._join_search(probe, col, True,
+                                                     stage_min), want,
+                                    ("lo", "cnt")):
+                _max_err(got, w, f"join_range {mode} {part} C={C} {what}")
+            fn = (lambda sm: lambda: ops._join_search(probe, col, False, sm)
+                  )(stage_min)
+            times[f"{mode}_ms"] = cuda_ms(fn, reps=50)
+            times[f"{mode}_device_ms"] = device_ms(fn)
+        times["join_count_ms"] = cuda_ms(lambda: ops.join_count(probe, col),
+                                         reps=50)
+        times["join_range_ms"] = cuda_ms(lambda: ops.join_range(probe, col),
+                                         reps=50)
+
+        def pair():
+            return torch.searchsorted(col, probe, right=True) \
+                - torch.searchsorted(col, probe)
+        times["searchsorted_pair_ms"] = cuda_ms(pair, reps=50)
+        times["searchsorted_pair_device_ms"] = device_ms(pair)
+        print(f"join_count modes, {what}, C={C} T={col.numel()} (threshold "
+              f"{ops.JOIN_STAGE_MIN_PROBES} probes): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in times.items()),
+              flush=True)
+
+
 def kernel_phase(store) -> Dict[str, dict]:
     """Every kernel against its plain version; returns per-kernel
     numbers for the JSON line."""
@@ -243,6 +314,11 @@ def kernel_phase(store) -> Dict[str, dict]:
             rec("join_count", _max_err(ops.join_count(probe, k),
                                        ref.join_count_ref(probe, k),
                                        f"join_count C={C} T={k.numel()}"))
+            for got, want, what in zip(ops.join_range(probe, k),
+                                       ref.join_range_ref(probe, k),
+                                       ("lo", "cnt")):
+                rec("join_count", _max_err(
+                    got, want, f"join_range {what} C={C} T={k.numel()}"))
         # semijoin: the same probes against the window (duplicate keys,
         # INT32_MAX pads), an INT32_MIN-padded and an all-pad table, and
         # empty sides
@@ -323,6 +399,7 @@ def kernel_phase(store) -> Dict[str, dict]:
     rec("fused_join", _max_err(got[3], ref.fused_join_ref(
         bind, valid, bind[:, 0].contiguous(), wkeys, wpay, 16)[3], "wrap"))
     torch.cuda.synchronize()
+    join_modes(keys, stop - start, ints)
 
     # times at the main path's top tested shape: 4 sites x 2^18 rows
     cap = 1 << 18
@@ -450,7 +527,7 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     # phase only, and no kernel may launch in it
     ops.reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.multiple(spmd_module, join_count=ref.join_count_ref,
+    with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
                              pair_semijoin=ref.pair_semijoin_ref,
                              dedup_rows=ref.dedup_rows_ref,
                              fused_join=ref.fused_join_ref):
@@ -562,13 +639,18 @@ def _drop_kv_tile(k: torch.Tensor, start: int, tile: int = 64):
     return torch.cat([k[:, :, :start], k[:, :, start + tile:]], dim=2)
 
 
-def _attn_bound(B, Hq, Hkv, Sq, Skv, D, elem):
-    """Bytes (q, k, v read once, o written once) and the FLOP of the two
-    products over the visible (query, key) pairs of a causal run."""
+def _attn_flop(B, Hq, Hkv, Sq, Skv, D):
+    """FLOP of the two products over the visible (query, key) pairs of a
+    causal run."""
     off = Skv - Sq
     pairs = sum(max(0, min(Skv, i + off + 1)) for i in range(Sq))
+    return 4.0 * B * Hq * D * pairs
+
+
+def _attn_bound(B, Hq, Hkv, Sq, Skv, D, elem):
+    """Bytes (q, k, v read once, o written once) and ``_attn_flop``."""
     nbytes = (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * elem
-    return bound(nbytes, 4.0 * B * Hq * D * pairs, BF16_OPS_PER_S)
+    return bound(nbytes, _attn_flop(B, Hq, Hkv, Sq, Skv, D), BF16_OPS_PER_S)
 
 
 def attention_phase(dev: str = "cuda") -> dict:
@@ -626,7 +708,10 @@ def attention_phase(dev: str = "cuda") -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bms, bound_by=by)
+    flop = _attn_flop(*shape)
     print(f"kernel flash_attention: kernel_ms={rec['ms']:.4f} "
+          f"({flop / rec['ms'] / 1e9:.1f} TFLOP/s, {rec['ms'] / bms:.2f}x "
+          f"the bound, {rec['ms'] / rec['library_ms']:.2f}x the library) "
           f"plain_ms={rec['plain_ms']:.4f} library_ms="
           f"{rec['library_ms']:.4f} bound_ms={bms:.5f} ({by}) at "
           f"B={LM_BATCH} Hq={H} Hkv={Hkv} S={LM_SEQ} D={D} bf16 causal",
@@ -651,8 +736,11 @@ def attention_phase(dev: str = "cuda") -> dict:
     long_ms = cuda_ms(lambda: ops.attention(q, k, v), reps=3)
     long_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=3)
+    flop = _attn_flop(1, H, Hkv, LM_LONG, LM_LONG, D)
     print(f"kernel flash_attention at B=1 S={LM_LONG}: kernel_ms="
-          f"{long_ms:.4f} library_ms={long_lib:.4f} bound_ms={bms:.5f} "
+          f"{long_ms:.4f} ({flop / long_ms / 1e9:.1f} TFLOP/s, "
+          f"{long_ms / bms:.2f}x the bound, {long_ms / long_lib:.2f}x the "
+          f"library) library_ms={long_lib:.4f} bound_ms={bms:.5f} "
           f"({by}); last {LM_LONG_CHECKED} rows max abs error {err:.3e}, "
           f"max row-relative error {rel:.3e}", flush=True)
     return rec
@@ -742,6 +830,17 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
     q, k, v, out, kw = seen[0]
     if q.is_contiguous() or k.is_contiguous() or v.is_contiguous():
         fail("flash_attention: the forward passed contiguous q, k, v")
+    # the kernel writes [B, Sq, Hq, D] rows: _sdpa's merge of the heads,
+    # out.transpose(1, 2).reshape(B, Sq, Hq * D), is a view, not a copy
+    merged = out.transpose(1, 2).reshape(out.shape[0], out.shape[2], -1)
+    if merged.data_ptr() != out.data_ptr() \
+            or merged.untyped_storage().data_ptr() \
+            != out.untyped_storage().data_ptr():
+        fail(f"flash_attention: the forward's output (strides "
+             f"{out.stride()}) reaches _sdpa's head merge as a copy")
+    print(f"flash_attention output strides {out.stride()}: _sdpa's head "
+          f"merge is a view", flush=True)
+    del merged
     err, rel = _attn_close(out, ref.attention_ref(q, k, v, **kw),
                            torch.bfloat16, "last layer of the forward")
     print(f"flash_attention on the last layer's q, k, v of the forward "
@@ -853,6 +952,48 @@ def spmd_phase(card: str) -> Dict[str, dict]:
     return kernels
 
 
+def ptxas_lines(name: str) -> List[str]:
+    """One line per kernel function of library ``name`` from its
+    ``ptxas -v`` report: registers, spills, shared memory, and any
+    warning ptxas gave (such as serialised wgmma).  Fails if the
+    warp-specialised flash kernel spills."""
+    import re
+    from repro_torch.kernels import build
+
+    def kernel_name(mangled: str) -> str:
+        # Itanium mangling: each name is its length, then its characters
+        # (the length may follow other digits); template arguments of
+        # int and bool as ILi128ELb1EE
+        for m in re.finditer(r"\d+", mangled):
+            for start in range(m.start(), m.end()):
+                size = int(mangled[start:m.end()])
+                name = mangled[m.end():m.end() + size]
+                if name.endswith("_kernel"):
+                    t = re.match(r"I((?:L[ib]\d+E)+)E",
+                                 mangled[m.end() + size:])
+                    args = re.findall(r"L([ib])(\d+)E", t.group(1)) \
+                        if t else []
+                    return name + ("<" + ", ".join(
+                        v if k == "i" else ("true" if v == "1" else "false")
+                        for k, v in args) + ">" if args else "")
+        return mangled
+
+    log = build._library_path(name).with_suffix(".log").read_text()
+    lines, fn = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = kernel_name(ln.split("for", 1)[1].strip())
+            lines.append(fn + ":")
+        elif fn and ("spill" in ln or "registers" in ln):
+            lines[-1] += " " + ln.split(":", 1)[-1].strip()
+            if "spill stores" in ln and "wgmma" in fn \
+                    and not re.search(r"\b0 bytes spill stores", ln):
+                fail(f"ptxas: {fn} spills registers: {ln.strip()}")
+        elif "(C75" in ln:
+            lines.append("warning: " + ln.split("info    :", 1)[-1].strip())
+    return lines
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -868,10 +1009,8 @@ def main() -> None:
           f"kernels (per kernel: "
           f"{ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
     for name in build.SOURCES:
-        log = build._library_path(name).with_suffix(".log")
-        info = [ln for ln in log.read_text().splitlines() if "registers" in ln]
-        print(f"ptxas {name}: " + " | ".join(ln.strip() for ln in info),
-              flush=True)
+        for line in ptxas_lines(name):
+            print(f"ptxas {name}: {line}", flush=True)
 
     kernels = spmd_phase(card)
     torch.cuda.empty_cache()

@@ -47,7 +47,7 @@ import torch
 from ..constants import INT32_SENTINEL
 from ..device import resolve_device
 from ..kernels import ref as kref
-from ..kernels.ops import (compact_rows, dedup_rows, fused_join, join_count,
+from ..kernels.ops import (compact_rows, dedup_rows, fused_join, join_range,
                            pair_semijoin)
 from .engine import EngineBase
 from .executor import CostModel, ExecStats, QueryResult
@@ -331,8 +331,8 @@ def _expand_fixed(bind: torch.Tensor, valid: torch.Tensor,
     rows that did NOT fit (0-d int32, 0 when exact); the int32 wrap
     guard is the reference's (``kernels.ref.expand_from_counts``)."""
     probe = torch.where(valid, col_vals, INT32_SENTINEL)
-    lo = torch.searchsorted(keys_sorted, probe)
-    cnt = torch.where(valid, join_count(probe, keys_sorted), 0).to(_I32)
+    lo, cnt = join_range(probe, keys_sorted)
+    cnt = torch.where(valid, cnt, 0).to(_I32)
     return kref.expand_from_counts(bind, lo, cnt, payload, capacity)
 
 

@@ -2,8 +2,9 @@
 attention), their wrappers (``ops``) and plain PyTorch versions
 (``ref``)."""
 from .ops import (LAUNCHES, attention, compact_rows, dedup_rows, fused_join,
-                  join_count, pair_semijoin, reset_launches, semijoin)
+                  join_count, join_range, pair_semijoin, reset_launches,
+                  semijoin)
 
 __all__ = ["LAUNCHES", "attention", "compact_rows", "dedup_rows",
-           "fused_join", "join_count", "pair_semijoin", "reset_launches",
-           "semijoin"]
+           "fused_join", "join_count", "join_range", "pair_semijoin",
+           "reset_launches", "semijoin"]

@@ -4,8 +4,9 @@ Each kernel source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``.  All sources compile in parallel (one ``nvcc`` each, started
 together) at first use, into ``build/repro_torch_ext/`` at the root of
-the checkout; a library's file name carries a hash of its sources, so
-an edited kernel is never served from a stale build.  Nothing here runs
+the checkout; a library's file name carries a hash of its source, the
+headers and the flags, so an edited kernel or header is never served
+from a stale build.  Nothing here runs
 at import time.
 """
 from __future__ import annotations
@@ -39,7 +40,7 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: stream as void*, sizes as int, strides as long long); every entry
 #: point returns the cudaError_t of its launches
 SIGNATURES = {
-    "join_count": ("rt_join_count", (_P, _I, _P, _I, _P, _P)),
+    "join_count": ("rt_join_count", (_P, _I, _P, _I, _P, _P, _I, _P, _P)),
     "pair_semijoin": ("rt_pair_semijoin", (_P, _P, _I, _P, _P, _I, _P, _P)),
     "dedup_rows": ("rt_dedup_rows", (_P, _P, _I, _I, _P, _I, _P, _P, _P)),
     "fused_join": ("rt_fused_join",
@@ -48,7 +49,7 @@ SIGNATURES = {
     "semijoin": ("rt_semijoin", (_P, _I, _P, _I, _P, _P)),
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                          _I, _I, _F, _I, _P)),
 }
 
@@ -68,10 +69,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source,
+    every header in ``csrc/`` (a kernel may include any of them) and
+    the full flag list."""
     h = hashlib.sha256()
-    for f in (SOURCES[name], "common.cuh"):
-        h.update((CSRC / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / SOURCES[name]] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 

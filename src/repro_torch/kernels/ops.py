@@ -63,10 +63,10 @@ def _flags(name: str, t: torch.Tensor) -> torch.Tensor:
 def _vectors(name: str, *tensors: torch.Tensor) -> None:
     """1-D tensors of one length: the kernels index them in lock step,
     so a mismatch would read past the end of one of them."""
-    shapes = [tuple(t.shape) for t in tensors]
-    if any(len(sh) != 1 or sh != shapes[0] for sh in shapes):
+    first = tensors[0].shape
+    if any(t.dim() != 1 or t.shape != first for t in tensors):
         raise ValueError(f"{name}: expected 1-D tensors of one length, "
-                         f"got shapes {shapes}")
+                         f"got shapes {[tuple(t.shape) for t in tensors]}")
 
 
 def _table(name: str, bind: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -79,6 +79,8 @@ def _table(name: str, bind: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream: tensors pass as
+    their data pointers, ``None`` as a null pointer."""
     from .build import kernel
     stream = torch.cuda.current_stream().cuda_stream
     err = kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -120,19 +122,63 @@ def compact_rows(sel: torch.Tensor, cols: Tuple[torch.Tensor, ...],
     return tuple(out), ok
 
 
+#: calls with fewer probes search the key column directly; larger ones
+#: first stage every 2^k-th key in shared memory (``csrc/join_count.cu``).
+#: Chosen from the card's device times of both modes at the serve's four
+#: probe-table sizes (4 x 4096 .. 4 x 2^18), which ``chip_smoke.py``
+#: prints (PERF.md).
+JOIN_STAGE_MIN_PROBES = 1 << 17
+#: keys a staged call samples into shared memory (``kMaxSamples``)
+JOIN_SAMPLES = 8192
+
+
+def _join_search(probe: torch.Tensor, keys_sorted: torch.Tensor,
+                 want_lo: bool, stage_min: int = JOIN_STAGE_MIN_PROBES
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(lo or None, cnt) of each probe on the card: one ``join_count``
+    call (``stage_min`` other than the threshold is for measuring the
+    two modes, as ``chip_smoke.py`` does)."""
+    probe = _i32("join_count", probe)
+    keys = _i32("join_count", keys_sorted)
+    n = probe.numel()
+    cnt = torch.empty_like(probe)
+    lo = torch.empty_like(probe) if want_lo else None
+    samples = torch.empty(JOIN_SAMPLES, dtype=_I32, device=probe.device) \
+        if n >= stage_min else None
+    _launch("join_count", probe, n, keys, keys.numel(), lo, cnt, stage_min,
+            samples)
+    return lo, cnt
+
+
+def join_range(probe: torch.Tensor, keys_sorted: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, cnt), both int32: ``probe[i]``'s run in the ascending int32
+    key column ``keys_sorted`` is ``[lo[i], lo[i] + cnt[i])`` (lo is
+    searchsorted side="left"; cnt the multiplicity).
+
+    On the card it replaces the TPU's ``semijoin.py::_count_kernel``
+    with ``csrc/join_count.cu``, bound by the L2 sectors its dependent
+    loads touch: one search a probe, the run's end by a short gallop;
+    calls of at least ``JOIN_STAGE_MIN_PROBES`` probes first stage
+    ``JOIN_SAMPLES`` sampled keys in shared memory and interpolate
+    within the window two samples bracket."""
+    _vectors("join_range", probe)
+    _vectors("join_range", keys_sorted)
+    if not _on_card("join_range", probe, keys_sorted):
+        return ref.join_range_ref(probe, keys_sorted)
+    return _join_search(probe, keys_sorted, True)
+
+
 def join_count(probe: torch.Tensor, keys_sorted: torch.Tensor
                ) -> torch.Tensor:
     """counts[i] = multiplicity of ``probe[i]`` in the ascending int32
-    key column ``keys_sorted``."""
+    key column ``keys_sorted`` (the ``cnt`` of ``join_range``, from the
+    same kernel with no ``lo`` written)."""
     _vectors("join_count", probe)
     _vectors("join_count", keys_sorted)
     if not _on_card("join_count", probe, keys_sorted):
         return ref.join_count_ref(probe, keys_sorted)
-    probe = _i32("join_count", probe)
-    keys = _i32("join_count", keys_sorted)
-    out = torch.empty_like(probe)
-    _launch("join_count", probe, probe.numel(), keys, keys.numel(), out)
-    return out
+    return _join_search(probe, keys_sorted, False)[1]
 
 
 def semijoin(queries: torch.Tensor, table_sorted: torch.Tensor
@@ -252,7 +298,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in
     q.dtype.  Queries occupy the last Sq positions of the timeline; a
     row that sees no key is 0 (``ref.attention_ref``).  On the card:
-    bf16 or float32, D in ``ATTENTION_HEAD_DIMS``, any Sq and Skv."""
+    bf16 or float32, D in ``ATTENTION_HEAD_DIMS``, any Sq and Skv.
+
+    On the card it replaces the TPU's ``flash_attention.py::
+    _attn_kernel`` with ``csrc/flash_attention.cu``, bound by its
+    tensor-core operations at the prefill shapes: bf16 at D 64 or 128
+    (scale > 0) runs the warp-specialised wgmma + TMA kernel, the rest
+    ``mma.sync`` (bf16) or FMAs (float32).  The card's result is a [B,
+    Sq, Hq, D] buffer viewed as [B, Hq, Sq, D], so ``out.transpose(1,
+    2)`` (the model's merge of the heads) is contiguous."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
@@ -274,9 +328,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention: head dim {D} not in "
                          f"{ATTENTION_HEAD_DIMS}")
     q, k, v = _rows(q), _rows(k), _rows(v)
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     _launch("flash_attention", q, k, v, out, B, Hq, Hkv, Sq, Skv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal),
             window or 0, scale if scale is not None else 1.0 / math.sqrt(D),
             int(q.dtype == torch.bfloat16))
     return out

@@ -51,6 +51,16 @@ def join_count_ref(probe: torch.Tensor, keys_sorted: torch.Tensor
     return (hi - lo).to(_I32)
 
 
+def join_range_ref(probe: torch.Tensor, keys_sorted: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, cnt), both int32: ``probe[i]``'s run in the ascending key
+    column is ``[lo[i], lo[i] + cnt[i])``, lo being searchsorted
+    side="left" (the expansion's source rows of one binding row)."""
+    lo = torch.searchsorted(keys_sorted, probe, right=False)
+    hi = torch.searchsorted(keys_sorted, probe, right=True)
+    return lo.to(_I32), (hi - lo).to(_I32)
+
+
 def pair_semijoin_ref(q_s: torch.Tensor, q_o: torch.Tensor,
                       t_s: torch.Tensor, t_o: torch.Tensor) -> torch.Tensor:
     """mask[i] = some table row r has (t_s[r], t_o[r]) == (q_s[i],
@@ -156,8 +166,8 @@ def expand_fixed_ref(bind: torch.Tensor, valid: torch.Tensor,
     payload) edge table into ``capacity`` rows (see
     ``expand_from_counts`` for the outputs)."""
     probe = torch.where(valid, col_vals, INT32_SENTINEL)
-    lo = torch.searchsorted(keys_sorted, probe)
-    cnt = torch.where(valid, join_count_ref(probe, keys_sorted), 0).to(_I32)
+    lo, cnt = join_range_ref(probe, keys_sorted)
+    cnt = torch.where(valid, cnt, 0).to(_I32)
     return expand_from_counts(bind, lo, cnt, payload, capacity)
 
 

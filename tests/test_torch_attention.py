@@ -172,3 +172,24 @@ def test_semijoin_empty_sides(m, n, no_launches):
     assert got.shape == (m,) and not got.any()
     want = np.asarray(j_semijoin(jnp.asarray(queries), jnp.asarray(table)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_cpu_output_layout_and_head_merge(dtype, no_launches):
+    """On the CPU the wrapper returns its plain version's [B, Hq, Sq, D]
+    tensor, also for the head-transposed views the model passes; the
+    model's merge of the heads gives the same [B, Sq, Hq * D] rows.
+    (On the card the result is a [B, Sq, Hq, D] buffer viewed as [B,
+    Hq, Sq, D], so the merge is a view; ``chip_smoke.py`` checks that.)"""
+    from repro_torch.kernels import ref
+    B, Hq, Hkv, S, D = 2, 4, 2, 40, 32
+    rng = np.random.default_rng(5)
+    np_dtype = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    q, k, v = (_torch(rng.standard_normal((B, S, H, D)).astype(np_dtype))
+               .transpose(1, 2) for H in (Hq, Hkv, Hkv))
+    got = ops.attention(q, k, v)
+    want = ref.attention_ref(q, k, v)
+    assert got.shape == (B, Hq, S, D) and got.dtype == q.dtype
+    assert torch.equal(got, want)
+    merged = got.transpose(1, 2).reshape(B, S, Hq * D)
+    assert torch.equal(merged, want.transpose(1, 2).reshape(B, S, Hq * D))

@@ -22,6 +22,7 @@ from repro_torch.core import spmd as tspmd
 from repro_torch.kernels import ops, ref
 
 INT32_MAX = np.iinfo(np.int32).max
+INT32_MIN = np.iinfo(np.int32).min
 
 
 def _t(a):
@@ -277,3 +278,112 @@ def test_wrappers_refuse_mismatched_shapes():
         ops.fused_join(b, v, i, i, i[:4], 4)
     with pytest.raises(ValueError):
         ops.fused_join(b, v, i, i, i, -1)
+
+
+def _range_cases():
+    """Key columns as the match loop sees them, and probes around them."""
+    rng = np.random.default_rng(11)
+    i32 = np.int32
+    cases = {}
+    # a property window: real keys, then INT32_MAX pads; probes from it,
+    # around it, and the sentinel an invalid binding row probes with
+    real = np.sort(rng.integers(0, 300, 700)).astype(i32)
+    cases["sentinel_window"] = (
+        np.concatenate([rng.integers(-20, 340, 400),
+                        [INT32_MAX, INT32_MAX]]).astype(i32),
+        np.concatenate([real, np.full(300, INT32_MAX, i32)]))
+    # Zipf hub runs: a few keys repeat thousands of times
+    runs = np.minimum(rng.zipf(1.5, 400), 3000)
+    cases["hub_runs"] = (rng.integers(-3, 803, 1000).astype(i32),
+                         np.repeat(np.arange(400, dtype=i32) * 2, runs))
+    cases["one_long_run"] = (np.array([4, 5, 6, INT32_MIN, INT32_MAX], i32),
+                             np.full(5000, 5, i32))
+    cases["empty_keys"] = (rng.integers(0, 9, 50).astype(i32),
+                           np.zeros(0, i32))
+    cases["empty_probes"] = (np.zeros(0, i32), np.arange(10, dtype=i32))
+    # probes below and above the whole key range, int32 extremes included
+    cases["outside_range"] = (
+        np.concatenate([rng.integers(-10 ** 9, 1000, 100),
+                        rng.integers(2000, 10 ** 9, 100),
+                        [INT32_MIN, INT32_MAX, 999, 2000]]).astype(i32),
+        np.sort(rng.integers(1000, 2000, 500)).astype(i32))
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(_range_cases()))
+def test_join_range_matches_searchsorted_and_jax(name, no_launches):
+    """lo is searchsorted side="left" and cnt the JAX package's
+    join_count (its Pallas kernel in interpret mode and its oracle)."""
+    probe, keys = _range_cases()[name]
+    lo, cnt = ops.join_range(_t(probe), _t(keys))
+    assert lo.dtype == cnt.dtype == torch.int32
+    _eq(lo, torch.searchsorted(_t(keys), _t(probe)))
+    _eq(lo, np.searchsorted(keys, probe, side="left"))
+    _eq(cnt, jref.join_count_ref(jnp.asarray(probe), jnp.asarray(keys)))
+    # the Pallas kernel pads its blocks with INT32_MAX, so a probe equal
+    # to INT32_MAX also counts that padding: compare the other probes
+    real = probe != INT32_MAX
+    _eq(cnt.numpy()[real],
+        np.asarray(j_join_count(jnp.asarray(probe), jnp.asarray(keys)))[real])
+    _eq(ops.join_count(_t(probe), _t(keys)), cnt)
+    got_lo, got_cnt = ref.join_range_ref(_t(probe), _t(keys))
+    _eq(got_lo, lo)
+    _eq(got_cnt, cnt)
+
+
+def _expand_three_searches(bind, valid, col, keys, payload, capacity):
+    """``_expand_fixed`` as it was before ``join_range``: lo from its own
+    searchsorted, counts from ``join_count``'s two."""
+    from repro_torch.constants import INT32_SENTINEL
+    probe = torch.where(valid, col, INT32_SENTINEL)
+    lo = torch.searchsorted(keys, probe)
+    cnt = torch.where(valid, ops.join_count(probe, keys), 0).to(torch.int32)
+    return ref.expand_from_counts(bind, lo, cnt, payload, capacity)
+
+
+@pytest.mark.parametrize("capacity", [4, 64, 4096])
+@pytest.mark.parametrize("style", ["random", "dup_heavy", "all_sentinel"])
+def test_expand_fixed_is_bit_identical_to_the_three_search_form(
+        style, capacity, no_launches):
+    bind, valid = _bind_case(256, 3, style, seed=capacity)
+    keys, payload = _edge_table(512, 400, 40, seed=7)
+    args = (_t(bind), _t(valid), _t(bind[:, 0]), _t(keys), _t(payload),
+            capacity)
+    got = tspmd._expand_fixed(*args)
+    want = _expand_three_searches(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+def test_expand_fixed_searches_the_key_column_only_in_join_range(
+        monkeypatch, no_launches):
+    """One search a probe: the only look-up of the key column is the
+    join_range call (one kernel launch on the card)."""
+    bind, valid = _bind_case(128, 2, "random", seed=5)
+    keys, payload = _edge_table(256, 200, 40, seed=6)
+    kt = _t(keys)
+    calls = {"join_range": 0, "searchsorted_on_keys": 0}
+    real_join_range, real_searchsorted = tspmd.join_range, torch.searchsorted
+
+    def join_range(probe, keys_sorted):
+        calls["join_range"] += 1
+        calls["inside"] = True          # its plain version searches here
+        try:
+            return real_join_range(probe, keys_sorted)
+        finally:
+            calls["inside"] = False
+
+    def searchsorted(seq, values, **kw):
+        if seq is kt and not calls["inside"]:
+            calls["searchsorted_on_keys"] += 1
+        return real_searchsorted(seq, values, **kw)
+
+    calls["inside"] = False
+    monkeypatch.setattr(tspmd, "join_range", join_range)
+    monkeypatch.setattr(torch, "searchsorted", searchsorted)
+    got = tspmd._expand_fixed(_t(bind), _t(valid), _t(bind[:, 0]), kt,
+                              _t(payload), 512)
+    assert calls["join_range"] == 1
+    assert calls["searchsorted_on_keys"] == 0
+    assert int(got[3]) == 0
