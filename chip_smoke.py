@@ -25,12 +25,23 @@ Phases, each fatal on any error or mismatch:
    search modes are held exactly and timed at the serve's four
    probe-table sizes (and on a seeded column of Zipf-length runs).
    Times: the wrapper, its plain version and, where one PyTorch call
-   computes the same function, that call.
+   computes the same function, that call.  The match loop's sites
+   entry points (``fused_join_sites``, ``pair_semijoin_runs``) are held
+   at every tier against their plain versions on a window of each of
+   the 4 sites (one made empty, one all-sentinel), with per-site
+   overflow and the wrap guard on one site; the fused join's rows also
+   in the earlier kernel's order, rebuilt from plain versions.  Both
+   are timed at the serve's tiers (CUDA events, device time and device
+   operations per call), with the site windows read in place and
+   copied first, beside the same work as one call per site.
 4. serve: launch counters reset, WatDiv template queries with one term
    bound to a data constant plus a star, a chain and a cycle, counters
    read; every answer set equals the same engine run on the plain
    versions, a subset equals the host ``match_pattern``, and every
-   kernel of the path launched.
+   kernel of the path launched; one warm pass under the profiler
+   (device busy share, the port's kernels by name); then the same
+   queries through ``execute_many`` in batches of 64 on a fresh engine
+   (answers equal to ``execute``'s, counters and launches read).
 5. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, rows with no visible key, one layer at 1 x 32768), each held to
@@ -46,6 +57,9 @@ Phases, each fatal on any error or mismatch:
    token; a profile of the forward and of 8 decode steps.
 6. the kernels as one JSON line (each with the path it launched on and
    its launches there), the card line, and last the result.
+
+``chip_baseline.py`` reuses phases of this script to measure an earlier
+commit's checkout in the same chip call as a change.
 """
 from __future__ import annotations
 
@@ -200,10 +214,11 @@ def _max_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     return err
 
 
-def device_ms(fn: Callable[[], object], reps: int = 50) -> float:
-    """Mean device time of ``fn``'s kernels over ``reps`` calls: the
-    summed durations of the device events ``torch.profiler`` records
-    (the host's launch overhead left out)."""
+def device_stats(fn: Callable[[], object], reps: int = 50):
+    """(mean device ms, device operations) per call of ``fn`` over
+    ``reps`` calls: the summed durations and the count of the device
+    events ``torch.profiler`` records (kernels, memsets, copies; the
+    host's launch overhead left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -212,8 +227,14 @@ def device_ms(fn: Callable[[], object], reps: int = 50) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3,
+            len(evs) / reps)
+
+
+def device_ms(fn: Callable[[], object], reps: int = 50) -> float:
+    """Mean device time of ``fn``'s kernels per call (``device_stats``)."""
+    return device_stats(fn, reps)[0]
 
 
 def join_modes(keys: torch.Tensor, live: int, ints) -> None:
@@ -264,6 +285,342 @@ def join_modes(keys: torch.Tensor, live: int, ints) -> None:
               f"{ops.JOIN_STAGE_MIN_PROBES} probes): "
               + ", ".join(f"{k}={v:.4f}" for k, v in times.items()),
               flush=True)
+
+
+def join_in_input_order(bind, valid, probe, keys, payload, capacity):
+    """One site's output of the fused join in the order of the earlier
+    CUDA kernel, rebuilt from plain versions: the in-place keep mask of
+    ``dedup_rows_ref``, ``join_range_ref`` of the probes, then
+    ``expand_from_counts`` over the rows in input order."""
+    from repro_torch.kernels import ref
+    keep = ref.dedup_rows_ref(bind, valid)
+    lo, cnt = ref.join_range_ref(probe.contiguous(), keys)
+    cnt = torch.where(keep, cnt, 0).to(torch.int32)
+    return ref.expand_from_counts(bind, lo, cnt, payload, capacity)
+
+
+def largest_windows(store):
+    """m distinct windows of the store's CSR arrays, in the form the
+    match loop passes them to the kernels: on each site, the run of the
+    property it holds most rows of, all read at the largest of their
+    window sizes (the vertical plan keeps the largest property on one
+    site, so one property's windows would be empty elsewhere)."""
+    from repro_torch.kernels import ref
+    offs = store.csr_offs
+    props = [int(np.argmax(store.prop_dev_rows[j]))
+             for j in range(store.num_sites)]
+    starts = tuple(int(offs[j, p]) for j, p in enumerate(props))
+    return ref.SiteWindows(starts, tuple(
+        int(offs[j, p + 1]) - starts[j] for j, p in enumerate(props)),
+        max(store.prop_window(p) for p in props))
+
+
+def check_join_sites(bind, valid, probe, keys, payload, cap, windows,
+                     what) -> int:
+    """``fused_join_sites`` on the card against its plain version (per
+    site: the overflow count, and the row multiset where nothing
+    overflowed) and against ``join_in_input_order`` (every output, row
+    order included, except under the wrap guard).  Returns the largest
+    error (0; any difference fails)."""
+    from repro_torch.kernels import ops, ref
+    got = ops.fused_join_sites(bind, valid, probe, keys, payload, cap,
+                               windows)
+    want = ref.fused_join_sites_ref(bind, valid, probe, keys, payload, cap,
+                                    windows)
+    tk, tp = ref.site_tables(keys, payload, windows, -1)
+    for j in range(keys.shape[0]):
+        w = f"{what} site {j}"
+        _max_err(got[3][j], want[3][j], w + " overflow")
+        if int(want[3][j]) == 0:
+            _max_err(_sorted_rows(got[0][j], got[1][j], got[2][j]),
+                     _sorted_rows(want[0][j], want[1][j], want[2][j]), w)
+        if int(want[3][j]) != cap + 1:
+            order = join_in_input_order(bind, valid, probe, tk[j], tp[j],
+                                        cap)
+            for g, o, part in zip(got, order, ("bind", "col", "valid")):
+                _max_err(g[j], o, f"{w} {part} in input order")
+    return 0
+
+
+def check_pair_runs(q_s, q_o, t_s, t_o, runs, windows, what) -> int:
+    """``pair_semijoin_runs`` on the card, both search modes, against
+    its plain version (exact).  Returns the largest error (0)."""
+    from repro_torch.kernels import ops, ref
+    want = ref.pair_semijoin_runs_ref(q_s, q_o, t_s, t_o, runs, windows)
+    _max_err(ops.pair_semijoin_runs(q_s, q_o, t_s, t_o, runs, windows),
+             want, what)
+    m = t_s.shape[0] if t_s.dim() == 2 else (
+        q_s.shape[0] if q_s.dim() == 2 else 1)
+    for mode, stage_min in (("direct", q_s.shape[-1] + 1), ("staged", 0)):
+        got = ops._pair_launch(q_s, q_o, t_s, t_o, runs, windows, m,
+                               stage_min)
+        _max_err(got.reshape(want.shape), want, f"{what} {mode}")
+    return 0
+
+
+def sites_phase(arrk, arrp, windows, widths, ints, rec) -> None:
+    """``fused_join_sites`` and ``pair_semijoin_runs`` against their
+    plain versions at every tier width of ``widths`` (cap -> V), with m
+    distinct site windows of the (m, W) CSR arrays ``arrk`` / ``arrp``
+    (keys sorted by (key, payload) in each window): the windows as the
+    match loop passes them with one site's made empty, and (m, T)
+    tables holding an all-sentinel one; the four binding styles; per
+    site overflow at capacity 1, 4 and 16; the wrap guard on one site;
+    the pairs as shared and per-site queries, with the edge-shipped
+    table of m sorted runs."""
+    from repro_torch.constants import INT32_SENTINEL
+    from repro_torch.kernels import ops, ref
+    dev = arrk.device
+    m, T = arrk.shape[0], windows.size
+    empty = ref.SiteWindows(windows.starts, tuple(
+        0 if j == 2 else n for j, n in enumerate(windows.lives)), T)
+    tk, tp = ref.site_tables(arrk, arrp, windows, -1)
+    sent_k, sent_p = tk.clone(), tp.clone()
+    sent_k[1], sent_p[1] = INT32_SENTINEL, -1
+    # the pair tables' form: pads (INT32_SENTINEL, INT32_SENTINEL)
+    pk, po = ref.site_tables(arrk, arrp, windows, INT32_SENTINEL)
+    pk[1], po[1] = INT32_SENTINEL, INT32_SENTINEL
+    live0 = windows.lives[0]
+    kmin, kmax = int(tk[0, 0]), int(tk[0, live0 - 1])
+    # the edge-shipped table: each site's first L window rows, (s, o)
+    # sorted, the rest of its run sentinel-filled
+    L = 1 << 14
+    g_s = torch.full((m, L), INT32_SENTINEL, dtype=torch.int32, device=dev)
+    g_o = g_s.clone()
+    for j in range(m):
+        n = min(windows.lives[j], L // 2 + 97 * j)
+        g_s[j, :n], g_o[j, :n] = tk[j, :n], tp[j, :n]
+    g_s, g_o = g_s.reshape(-1), g_o.reshape(-1)
+    for cap, V in widths.items():
+        C = m * cap
+        for style in ("dup_heavy", "random", "all_sentinel", "distinct"):
+            if style == "dup_heavy":
+                bind = ints(0, 3, C, V)
+            elif style == "distinct":
+                bind = torch.arange(C * V, dtype=torch.int32,
+                                    device=dev).reshape(C, V)
+            else:
+                bind = ints(kmin, kmax + 1, C, V)
+            valid = (ints(0, 10, C) < 7) if style != "all_sentinel" \
+                else torch.zeros(C, dtype=torch.bool, device=dev)
+            if style != "distinct":
+                bind = torch.where(valid[:, None], bind, -1)
+            if style == "random":   # half the probes from the windows
+                pick = ints(0, live0, C).long()
+                bind[:, 0] = torch.where(valid & (ints(0, 2, C) == 0),
+                                         tk[0][pick], bind[:, 0])
+            probe = bind[:, 0]      # a column view, as the path passes
+            what = f"fused_join_sites C={C} V={V} cap={cap} {style}"
+            rec("fused_join", check_join_sites(
+                bind, valid, probe, arrk, arrp, cap, empty, what))
+            rec("fused_join", check_join_sites(
+                bind, valid, probe, sent_k, sent_p, cap, None,
+                what + " all-sentinel site"))
+        # pairs: half of them rows of a window, some the pad pair
+        pick = ints(0, live0, C).long()
+        real = ints(0, 2, C) == 0
+        q_s = torch.where(real, tk[0][pick], ints(kmin, kmax + 1, C))
+        q_o = torch.where(real, tp[0][pick], ints(0, 1 << 21, C))
+        q_s[:7], q_o[:7] = INT32_SENTINEL, INT32_SENTINEL
+        per_site = torch.stack([q_s.roll(97 * j) for j in range(m)])
+        per_site_o = torch.stack([q_o.roll(97 * j) for j in range(m)])
+        what = f"pair_semijoin_runs C={C}"
+        for args, form in (
+                ((q_s, q_o, arrk, arrp, 1, empty), "windows, shared"),
+                ((per_site, per_site_o, arrk, arrp, 1, empty),
+                 "windows, per site"),
+                ((q_s, q_o, pk, po, 1, None), "all-sentinel site"),
+                ((per_site, per_site_o, g_s, g_o, m, None),
+                 f"edge-shipped table of {m} runs"),
+                ((q_s, q_o, g_s[:0], g_o[:0], 1, None), "empty table"),
+                ((q_s[:0], q_o[:0], arrk, arrp, 1, windows),
+                 "no queries")):
+            rec("pair_semijoin", check_pair_runs(*args, f"{what} {form}"))
+    # per-site overflow at capacity 1 / 4 / 16: a duplicate-heavy table
+    # against dense key collisions, different on each site
+    bind = ints(0, 3, 512, 2)
+    valid = ints(0, 10, 512) < 9
+    dense = torch.sort(ints(0, 3, m, 64), dim=1).values
+    pay = ints(0, 99, m, 64)
+    for cap in (1, 4, 16):
+        want = ops.fused_join_sites(bind.cpu(), valid.cpu(),
+                                    bind[:, 0].cpu(), dense.cpu(),
+                                    pay.cpu(), cap)[3]
+        if bool((want <= 0).any()):
+            fail("sites overflow case did not overflow on every site")
+        rec("fused_join", check_join_sites(
+            bind, valid, bind[:, 0], dense, pay, cap, None,
+            f"fused_join_sites overflow cap={cap}"))
+    # wrap guard on site 0 only: a count above (2^31-1)/C there
+    C = 1 << 16
+    bind = torch.zeros((C, 1), dtype=torch.int32, device=dev)
+    valid = torch.zeros(C, dtype=torch.bool, device=dev)
+    valid[:3] = True
+    bind[:3, 0] = torch.tensor([5, 6, 7], dtype=torch.int32, device=dev)
+    wkeys = torch.sort(ints(0, 12, m, 40000), dim=1).values
+    wkeys[0] = 5
+    wpay = torch.arange(m * 40000, dtype=torch.int32,
+                        device=dev).reshape(m, 40000)
+    got = ops.fused_join_sites(bind, valid, bind[:, 0], wkeys, wpay, 16)[3]
+    if int(got[0]) != 17 or bool((got[1:] == 17).any()):
+        fail(f"sites wrap guard: overflow {got.tolist()}, expected 17 on "
+             f"site 0 only")
+    rec("fused_join", check_join_sites(bind, valid, bind[:, 0], wkeys, wpay,
+                                       16, None, "fused_join_sites wrap"))
+    torch.cuda.synchronize()
+    print(f"sites checks: fused_join_sites and pair_semijoin_runs exact at "
+          f"{m} sites, tiers {list(widths)}", flush=True)
+
+
+def copied_tables(arrk, arrp, windows, pay_fill):
+    """The (m, size) tables ``windows`` names, copied as the match
+    loop's ``csr_window`` copies them (per site: one compare of an
+    arange with the live rows, two ``torch.where``), then stacked: the
+    copy form the in-place windows replace."""
+    from repro_torch.constants import INT32_SENTINEL
+    ks, ps = [], []
+    for j, (a, n) in enumerate(zip(windows.starts, windows.lives)):
+        live = torch.arange(windows.size, device=arrk.device) < n
+        ks.append(torch.where(live, arrk[j, a:a + windows.size],
+                              INT32_SENTINEL))
+        ps.append(torch.where(live, arrp[j, a:a + windows.size], pay_fill))
+    return torch.stack(ks), torch.stack(ps)
+
+
+def sites_times(arrk, arrp, windows, ints) -> None:
+    """The two sites entry points at the serve's tiers, 4 x 4096 to
+    4 x 2^18, on the windows the match loop passes: CUDA-event ms per
+    call (back to back, the host's cost included), device ms and device
+    operations per call (the profiler), each with the windows read in
+    place and with them first copied (``copied_tables``); and the pair
+    kernel's two modes' device times (which set
+    ``ops.PAIR_STAGE_MIN_PROBES``)."""
+    from repro_torch.constants import INT32_SENTINEL
+    from repro_torch.kernels import ops
+    m = arrk.shape[0]
+    tk = arrk[0, windows.starts[0]:windows.starts[0] + windows.lives[0]]
+    tp = arrp[0, windows.starts[0]:windows.starts[0] + windows.lives[0]]
+    n0 = windows.lives[0]
+    for cap in (4096, 1 << 14, 1 << 16, 1 << 18):
+        C, V = m * cap, 4
+        bind = ints(int(tk[0]), int(tk[-1]) + 1, C, V)
+        valid = ints(0, 10, C) < 7
+        bind[:, 0] = tk[ints(0, n0, C).long()]
+        pick = ints(0, n0, C).long()
+        q_s, q_o = tk[pick], torch.where(ints(0, 2, C) == 0, tp[pick],
+                                         ints(0, 1 << 21, C))
+        calls = {
+            "fused_join_sites": lambda: ops.fused_join_sites(
+                bind, valid, bind[:, 0], arrk, arrp, cap, windows),
+            "fused_join_sites copied": lambda: ops.fused_join_sites(
+                bind, valid, bind[:, 0],
+                *copied_tables(arrk, arrp, windows, -1), cap),
+            "pair_semijoin_runs": lambda: ops.pair_semijoin_runs(
+                q_s, q_o, arrk, arrp, 1, windows),
+            "pair_semijoin_runs copied": lambda: ops.pair_semijoin_runs(
+                q_s, q_o, *copied_tables(arrk, arrp, windows,
+                                         INT32_SENTINEL), 1)}
+        parts = []
+        for name, fn in calls.items():
+            ms = cuda_ms(fn, reps=50)
+            dms, dops = device_stats(fn)
+            parts.append(f"{name} ms={ms:.4f} device_ms={dms:.4f} "
+                         f"device_ops={dops:.1f}")
+        for mode, sm in (("direct", C + 1), ("staged", 0)):
+            dms = device_ms(lambda: ops._pair_launch(
+                q_s, q_o, arrk, arrp, 1, windows, m, sm))
+            parts.append(f"pair {mode} device_ms={dms:.4f}")
+        print(f"sites times C={C} ({m} x {cap}) T={windows.size}: "
+              + "; ".join(parts), flush=True)
+        if cap == 1 << 18:
+            kernel_times(calls["fused_join_sites"],
+                         f"fused_join_sites at C={C}")
+
+
+def port_kernel_names() -> set:
+    """The ``__global__`` function names in the port's ``csrc/``."""
+    import re
+    from repro_torch.kernels import build
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)")
+    return {m.group(1) for f in build.CSRC.glob("*.cu*")
+            for m in pat.finditer(f.read_text())}
+
+
+def one_site_times(store, ints) -> None:
+    """A gather step's joins as one call per site, through the one-site
+    entry points both this tree and the one before the sites kernels
+    have (``ops.fused_join``, ``ops.pair_semijoin``), at the serve's
+    smallest and largest tiers on each site's window of its largest
+    property: CUDA-event ms, device ms and device operations for the m
+    calls."""
+    from repro_torch.constants import INT32_SENTINEL
+    from repro_torch.kernels import ops
+    m, offs = store.num_sites, store.csr_offs
+    props = [int(np.argmax(store.prop_dev_rows[j])) for j in range(m)]
+    T = max(store.prop_window(p) for p in props)
+    idx = torch.arange(T, device=store.device)
+    wins = []
+    for j, p in enumerate(props):
+        a, n = int(offs[j, p]), int(offs[j, p + 1] - offs[j, p])
+        wins.append((torch.where(idx < n, store.csr_sub_s[j, a:a + T],
+                                 INT32_SENTINEL),
+                     torch.where(idx < n, store.csr_sub_o[j, a:a + T], -1),
+                     torch.where(idx < n, store.csr_sub_o[j, a:a + T],
+                                 INT32_SENTINEL), n))
+    k0, p0, _po, n0 = wins[0]
+    for cap in (4096, 1 << 18):
+        C, V = m * cap, 4
+        bind = ints(int(k0[0]), int(k0[n0 - 1]) + 1, C, V)
+        valid = ints(0, 10, C) < 7
+        bind[:, 0] = k0[ints(0, n0, C).long()]
+        probe = bind[:, 0].contiguous()
+        pick = ints(0, n0, C).long()
+        q_s, q_o = k0[pick], torch.where(ints(0, 2, C) == 0, p0[pick],
+                                         ints(0, 1 << 21, C))
+
+        def joins():
+            for k, pay, _po, _n in wins:
+                ops.fused_join(bind, valid, probe, k, pay, cap)
+
+        def pairs():
+            for k, _p, po, _n in wins:
+                ops.pair_semijoin(q_s, q_o, k, po)
+        parts = []
+        for name, fn in (("fused_join", joins), ("pair_semijoin", pairs)):
+            dms, dops = device_stats(fn, reps=20)
+            parts.append(f"{m} x {name} ms={cuda_ms(fn):.4f} device_ms="
+                         f"{dms:.4f} device_ops={dops:.1f}")
+        print(f"one-site calls C={C} ({m} x {cap}) T={T}: "
+              + "; ".join(parts), flush=True)
+
+
+def kernel_label(name: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    arguments: "void (anonymous namespace)::k<true>(int*)" -> "k<true>"."""
+    return name.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("(")[0] or name
+
+
+def kernel_times(fn: Callable[[], object], what: str, reps: int = 20):
+    """Device time per call of each device operation ``fn`` issues,
+    by name (the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_label(e.name)
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    print(f"device time per call of {what}: " + "; ".join(
+        f"{k} {v / reps / 1e3:.4f} ms" for k, v in by_name.items()),
+        flush=True)
 
 
 def kernel_phase(store) -> Dict[str, dict]:
@@ -400,14 +757,29 @@ def kernel_phase(store) -> Dict[str, dict]:
         bind, valid, bind[:, 0].contiguous(), wkeys, wpay, 16)[3], "wrap"))
     torch.cuda.synchronize()
     join_modes(keys, stop - start, ints)
+    # the sites entry points on the path's own tables: a window on each
+    # site in the subject-sorted CSR arrays
+    win = largest_windows(store)
+    print(f"sites windows: starts {win.starts}, live rows {win.lives}, "
+          f"size {win.size}", flush=True)
+    sites_phase(store.csr_sub_s, store.csr_sub_o, win, widths, ints, rec)
+    sites_times(store.csr_sub_s, store.csr_sub_o, win, ints)
+    one_site_times(store, ints)
 
     # times at the main path's top tested shape: 4 sites x 2^18 rows
     cap = 1 << 18
     C, V = SITES * cap, 4
     lg = float(np.log2(max(T, 2)))
     probe = keys[ints(0, stop - start, C).long()]
-    q_s, q_o = keys[ints(0, stop - start, C).long()], ints(kmin, kmax + 1, C)
-    t_s = store.csr_obj_s[j, start:start + T].contiguous()
+    # pairs against site j's subject-sorted window, as the path passes
+    # it: half of them rows of the window
+    pick = ints(0, stop - start, C).long()
+    q_s = keys[pick]
+    q_o = torch.where(ints(0, 2, C) == 0, payload[pick],
+                      ints(0, 1 << 21, C))
+    one = ref.SiteWindows((start,), (stop - start,), T)
+    sub_s, sub_o = store.csr_sub_s[j:j + 1], store.csr_sub_o[j:j + 1]
+    pair_s, pair_o = ref.site_tables(sub_s, sub_o, one, INT32_SENTINEL)
     bind = ints(kmin, kmax + 1, C, V)
     valid = ints(0, 10, C) < 7
     pb = keys[ints(0, stop - start, C).long()]
@@ -425,11 +797,13 @@ def kernel_phase(store) -> Dict[str, dict]:
                        lambda: torch.searchsorted(keys, probe, right=True)
                        - torch.searchsorted(keys, probe),
                        (2 * C + T) * 4, C * 2 * lg),
-        "pair_semijoin": (lambda: ops.pair_semijoin(q_s, q_o, t_s, objs),
-                          lambda: ref.pair_semijoin_ref(q_s, q_o, t_s, objs),
+        "pair_semijoin": (lambda: ops.pair_semijoin_runs(
+                              q_s, q_o, sub_s, sub_o, 1, one),
+                          lambda: ref.pair_semijoin_runs_ref(
+                              q_s, q_o, sub_s, sub_o, 1, one),
                           lambda: torch.isin(pair_key(q_s, q_o),
-                                             pair_key(t_s, objs)),
-                          (C + T) * 8 + C, (C * 2 + T * 2) * lg),
+                                             pair_key(pair_s[0], pair_o[0])),
+                          (C + T) * 8 + C, C * 2 * lg),
         "semijoin": (lambda: ops.semijoin(probe, keys),
                      lambda: ref.semijoin_mask_ref(probe, keys),
                      lambda: torch.isin(probe, keys),
@@ -437,12 +811,20 @@ def kernel_phase(store) -> Dict[str, dict]:
         "dedup_rows": (lambda: ops.dedup_rows(bind, valid),
                        lambda: ref.dedup_rows_ref(bind, valid), None,
                        C * V * 4 + 2 * C, C * 6 * V),
-        "fused_join": (lambda: ops.fused_join(bind, valid, pb, keys, payload,
-                                              cap),
-                       lambda: ref.fused_join_ref(bind, valid, pb, keys,
-                                                  payload, cap), None,
-                       C * V * 4 + C * 5 + T * 8 + cap * (4 * V + 5) + 4,
-                       C * 6 * V + n_keep * 2 * lg + cap * 2 * np.log2(C)),
+        # one call for the SITES windows; bytes: the table and its
+        # flags and probes, each window's stored keys (its pads are
+        # virtual), the payload of at most capacity rows a site, and
+        # the outputs
+        "fused_join": (lambda: ops.fused_join_sites(
+                           bind, valid, bind[:, 0], store.csr_sub_s,
+                           store.csr_sub_o, cap, win),
+                       lambda: ref.fused_join_sites_ref(
+                           bind, valid, bind[:, 0], store.csr_sub_s,
+                           store.csr_sub_o, cap, win), None,
+                       C * V * 4 + C * 5 + 4 * sum(win.lives)
+                       + 4 * sum(min(n, cap) for n in win.lives)
+                       + SITES * cap * (4 * V + 5) + 4 * SITES,
+                       C * 6 * V + SITES * (n_keep * 2 * lg + cap * 10)),
     }
     for name, (kern, plain, lib, nbytes, nops) in cases.items():
         bms, by = bound(nbytes, nops)
@@ -450,7 +832,9 @@ def kernel_phase(store) -> Dict[str, dict]:
             ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=5),
             library_ms=cuda_ms(lib) if lib is not None else None,
             bound_ms=bms, bound_by=by)
+        dms, dops = device_stats(kern)
         print(f"kernel {name}: kernel_ms={out[name]['ms']:.4f} "
+              f"(device {dms:.4f} ms, {dops:.1f} device operations) "
               f"plain_ms={out[name]['plain_ms']:.4f} "
               f"library_ms={out[name]['library_ms']} "
               f"bound_ms={bms:.5f} ({by}) at C={C} V={V} T={T} cap={cap}",
@@ -528,9 +912,9 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     ops.reset_launches()
     t0 = time.perf_counter()
     with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
-                             pair_semijoin=ref.pair_semijoin_ref,
+                             pair_semijoin_runs=ref.pair_semijoin_runs_ref,
                              dedup_rows=ref.dedup_rows_ref,
-                             fused_join=ref.fused_join_ref):
+                             fused_join_sites=ref.fused_join_sites_ref):
         plain_results = [plain.execute(q) for q in queries]
     t_plain = time.perf_counter() - t0
     if any(ops.LAUNCHES.values()):
@@ -553,6 +937,53 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     print(f"host match_pattern: {len(checked)} answer sets equal "
           f"({time.perf_counter() - t0:.1f} s); rows of the shape queries "
           f"{[r.num_rows for r in results[SERVED:]]}", flush=True)
+    serve_profile(session, queries)
+    return launches, results
+
+
+def serve_profile(session, queries) -> None:
+    """One warm pass of the serve (capacity hints in place) under the
+    profiler: the device busy share, the share of wall time outside any
+    device work, the port's kernels summed by name, the five largest
+    kernels."""
+    device_profile(lambda: [session.execute(q) for q in queries],
+                   f"RDF serve, one warm pass of {len(queries)} queries",
+                   own_kernels=True)
+
+
+def serve_many_phase(plan, queries, results, card: str) -> Dict[str, int]:
+    """The same queries through ``Session.execute_many`` in batches of
+    64 on a fresh engine: queries of one shape inside a batch share one
+    run of the match loop.  Every answer set must equal the ``execute``
+    serve's.  Returns the launch counts of the batched serve."""
+    from repro_torch.core import Session
+    from repro_torch.kernels import ops
+    session = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    many = session.execute_many(queries, batch_size=64)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = session.stats()
+    hits = int(st.extra["batch_shape_hits"])
+    print(f"serve execute_many batch_size=64 ({card}): {len(queries)} "
+          f"queries in {secs:.2f} s, qps={len(queries) / secs:.3f}, "
+          f"comm_bytes={st.comm_bytes}, capacity_tiers_tried="
+          f"{len(queries) - hits + int(st.extra['capacity_retries'])}, "
+          + ", ".join(f"{k}={int(st.extra[k])}" for k in (
+              "batch_shape_hits", "capacity_retries", "gather_steps",
+              "edge_shipped_steps", "edge_cache_hits", "skipped_gathers",
+              "routed_queries", "compiled_shapes"))
+          + f", result_rows={st.result_rows}", flush=True)
+    print(f"launches on the execute_many serve: {launches}", flush=True)
+    for i, (a, b) in enumerate(zip(many, results)):
+        ra, rb = answer_rows(a.bindings), answer_rows(b.bindings)
+        if ra.shape != rb.shape or not np.array_equal(ra, rb):
+            fail(f"query {i} {queries[i].edges}: execute_many gives "
+                 f"{ra.shape[0]} rows, execute {rb.shape[0]}")
+    print(f"execute_many: {len(queries)} answer sets equal the execute "
+          f"serve's", flush=True)
     return launches
 
 
@@ -746,11 +1177,15 @@ def attention_phase(dev: str = "cuda") -> dict:
     return rec
 
 
-def device_profile(fn: Callable[[], object], what: str) -> None:
+def device_profile(fn: Callable[[], object], what: str,
+                   own_kernels: bool = False) -> None:
     """Device busy share of one call of ``fn``: the summed durations of
     the device-side events ``torch.profiler`` records (kernels, copies,
     fills; one stream, so they do not overlap) over the host-clock wall
-    time of the call; and the five largest kernels by device time."""
+    time of the call, and the rest of the wall time, outside any device
+    work; the five largest kernels by device time; with
+    ``own_kernels``, every kernel of the port's ``csrc/`` and the
+    memsets, summed by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -765,12 +1200,22 @@ def device_profile(fn: Callable[[], object], what: str) -> None:
         print(f"profile {what}: device busy share not measured (the "
               f"profiler recorded no device time)", flush=True)
         return
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     print(f"profile {what}: wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms ({busy_us / 1e4 / wall:.1f}%); top "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / 1e4 / wall:.1f}%), outside "
+          f"any device work {100 - busy_us / 1e4 / wall:.1f}% of the wall "
+          f"time; {sum(map(len, by_name.values()))} device operations; top "
           "kernels: " + "; ".join(
               f"{name[:60]} {sum(v) / 1e3:.2f} ms x{len(v)}"
-              for name, v in top), flush=True)
+              for name, v in top[:5]), flush=True)
+    if own_kernels:
+        mine = port_kernel_names()
+        own = [(kernel_label(name), v) for name, v in top
+               if kernel_label(name).split("<")[0].split("::")[-1] in mine
+               or name.startswith("Memset")]
+        print(f"profile {what}, the port's kernels and memsets: " + "; ".join(
+            f"{name} {sum(v) / 1e3:.3f} ms x{len(v)}" for name, v in own),
+            flush=True)
 
 
 def lm_phase(card: str, dev: str = "cuda") -> dict:
@@ -911,10 +1356,9 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
     return rec
 
 
-def spmd_phase(card: str) -> Dict[str, dict]:
-    """Phases 2 to 4: the WatDiv plan, the join kernels and the served
-    queries.  Returns the records of the kernels checked against the
-    store, with their launches on the serve path."""
+def rdf_setup():
+    """Phase 2: the WatDiv graph, its design workload, the 4-site plan
+    and a session serving it on the card."""
     from repro_torch.core import (PartitionConfig, Session, build_plan,
                                   generate_watdiv, generate_workload)
     t0 = time.perf_counter()
@@ -935,18 +1379,33 @@ def spmd_phase(card: str) -> Dict[str, dict]:
     print(f"store: {time.perf_counter() - t0:.1f} s, rows per site "
           f"{store.prop_dev_rows.sum(1).tolist()}, width "
           f"{store.csr_sub_s.shape[1]}", flush=True)
+    return graph, plan, session
 
-    kernels = kernel_phase(store)
+
+def spmd_phase(card: str) -> Dict[str, dict]:
+    """Phases 2 to 4: the WatDiv plan, the join kernels, the served
+    queries (``execute``, its profile, then ``execute_many``).  Returns
+    the records of the kernels checked against the store, with their
+    launches on the ``execute`` serve."""
+    from repro_torch.core import Session
+    graph, plan, session = rdf_setup()
+    kernels = kernel_phase(session.engine.store)
     queries = served_queries(graph)
     plain = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
     torch.cuda.reset_peak_memory_stats()
-    launches = serve_phase(session, plain, graph, queries, card)
+    launches, results = serve_phase(session, plain, graph, queries, card)
     print(f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
           f"bytes ({card})", flush=True)
     missing = [k for k, (_s, _t, path) in KERNELS.items()
                if path == "spmd" and launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
+    del plain
+    many = serve_many_phase(plan, queries, results, card)
+    missing = [k for k, (_s, _t, path) in KERNELS.items()
+               if path == "spmd" and many[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the execute_many serve: {missing}")
     for k in kernels:
         kernels[k]["launches"] = launches[k]
     return kernels

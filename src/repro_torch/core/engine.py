@@ -42,7 +42,8 @@ class EngineStats:
 
 
 class EngineBase:
-    """Shared counter/hook plumbing and a sequential ``execute_many``."""
+    """Shared counter/hook plumbing and a batched ``execute_many``
+    (sequential unless the backend overrides ``_execute_batch``)."""
 
     def _init_engine_base(self) -> None:
         self.post_execute_hooks: List[Callable[[Any, Any], None]] = []
@@ -92,9 +93,18 @@ class EngineBase:
 
     def execute_many(self, queries: Sequence["QueryGraph"],
                      batch_size: int = 64) -> List["QueryResult"]:
-        """Execute a query stream; results in input order.  Batches run
-        query by query (shape-shared batches are a later slice)."""
-        return [self.execute(q) for q in queries]
+        """Execute a query stream in batches of ``batch_size`` (at least
+        1).  Results come back in input order; backends override
+        ``_execute_batch`` to exploit structure inside a batch."""
+        bs = max(int(batch_size), 1)
+        out: List["QueryResult"] = []
+        for i in range(0, len(queries), bs):
+            out.extend(self._execute_batch(list(queries[i:i + bs])))
+        return out
+
+    def _execute_batch(self, batch: List["QueryGraph"]
+                       ) -> List["QueryResult"]:
+        return [self.execute(q) for q in batch]
 
     def stats(self) -> EngineStats:
         """Cumulative counters since construction: the named counters

@@ -47,8 +47,8 @@ import torch
 from ..constants import INT32_SENTINEL
 from ..device import resolve_device
 from ..kernels import ref as kref
-from ..kernels.ops import (compact_rows, dedup_rows, fused_join, join_range,
-                           pair_semijoin)
+from ..kernels.ops import (compact_rows, dedup_rows, fused_join_sites,
+                           join_range, pair_semijoin_runs)
 from .engine import EngineBase
 from .executor import CostModel, ExecStats, QueryResult
 from .graph import RDFGraph
@@ -473,6 +473,17 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
         return (torch.where(live, arrk[j, start:start + size], imax),
                 torch.where(live, arrp[j, start:start + size], pay_fill), n)
 
+    def site_windows(prop: int) -> kref.SiteWindows:
+        """Every site's ``csr_window`` of ``prop`` as the kernels read it
+        in place: offsets into row j of the CSR arrays and live rows."""
+        size = windows.get(prop, 8)
+        if not 0 <= prop < n_props:
+            return kref.SiteWindows((0,) * m, (0,) * m, size)
+        starts = tuple(int(offs[j, prop]) for j in range(m))
+        return kref.SiteWindows(
+            starts, tuple(int(offs[j, prop + 1]) - starts[j]
+                          for j in range(m)), size)
+
     def owned_run_window(j: int, prop: int, size: int,
                          n_live: int) -> torch.Tensor:
         """Owned-row flags aligned with ``csr_window(j, prop, True,
@@ -591,33 +602,44 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
 
         if s_known and d_known:
             # cycle close: membership of the bound (src, dst) pair among
-            # the property's edges
-            def pair_keep(bt, vt, t_s, t_o):
-                nr = bt.shape[0]
-                sv = (torch.full((nr,), e.src, dtype=_I32, device=dev)
-                      if e.src >= 0 else bt[:, col_idx(e.src)])
-                dv = (torch.full((nr,), e.dst, dtype=_I32, device=dev)
-                      if e.dst >= 0 else bt[:, col_idx(e.dst)])
-                return vt & pair_semijoin(sv, dv, t_s, t_o)
+            # the property's edges, whose tables are (s, o)-sorted runs:
+            # each site's window of the subject-sorted CSR arrays, or the
+            # m runs of the edge-shipped table
+            def pair_col(bts, v):
+                """Query column of endpoint ``v`` over the binding
+                tables ``bts``: (C,) for one table, (m, C) for m."""
+                nr = bts[0].shape[0]
+                if v >= 0:
+                    col = torch.full((nr,), v, dtype=_I32, device=dev)
+                    return col if len(bts) == 1 else col.expand(len(bts), nr)
+                c = col_idx(v)
+                return bts[0][:, c] if len(bts) == 1 \
+                    else torch.stack([b[:, c] for b in bts])
 
             if via_gather:
                 gb, gv, shipped = gathered_bindings()
                 gb, gv = _dedup_padded(gb, gv)
+                keep = gv & pair_semijoin_runs(
+                    pair_col([gb], e.src), pair_col([gb], e.dst),
+                    store.csr_sub_s, store.csr_sub_o, 1,
+                    site_windows(e.prop))
                 for j in range(m):
-                    t_s, t_o, _n = csr_window(j, e.prop, True, pay_fill=imax)
                     binds[j], valids[j], over = _compress_rows(
-                        gb, pair_keep(gb, gv, t_s, t_o), capacity)
+                        gb, keep[j], capacity)
                     ovf[j] = torch.maximum(ovf[j], over)
                 row_v = shipped
             else:
+                sv, dv = pair_col(binds, e.src), pair_col(binds, e.dst)
                 if mode == "skip":
-                    tables = [csr_window(j, e.prop, True, pay_fill=imax)[:2]
-                              for j in range(m)]
+                    keep = pair_semijoin_runs(
+                        sv, dv, store.csr_sub_s, store.csr_sub_o, 1,
+                        site_windows(e.prop))
                 else:
-                    tables = [gathered_prop_tables()] * m
-                    edge_cache[e.prop] = tables[0]
+                    g_s, g_o = gathered_prop_tables()
+                    edge_cache[e.prop] = (g_s, g_o)
+                    keep = pair_semijoin_runs(sv, dv, g_s, g_o, m)
                 for j in range(m):
-                    valids[j] = pair_keep(binds[j], valids[j], *tables[j])
+                    valids[j] = valids[j] & keep[j]
                     binds[j] = torch.where(valids[j][:, None], binds[j], -1)
         else:
             # expansion: probe the known endpoint against the property's
@@ -632,13 +654,17 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
 
             new_cols: List[torch.Tensor] = [None] * m
             if via_gather:
+                # one call joins the gathered table against every site's
+                # window, read in place from the CSR arrays
                 gb, gv, shipped = gathered_bindings()
-                gprobe = probe_vals(gb)
+                arrk, arrp = ((store.csr_sub_s, store.csr_sub_o) if s_known
+                              else (store.csr_obj_o, store.csr_obj_s))
+                nb, nc, nv, over = fused_join_sites(
+                    gb, gv, probe_vals(gb), arrk, arrp, capacity,
+                    site_windows(e.prop))
                 for j in range(m):
-                    keys, payload, _n = csr_window(j, e.prop, s_known)
-                    binds[j], new_cols[j], valids[j], over = fused_join(
-                        gb, gv, gprobe, keys, payload, capacity)
-                    ovf[j] = torch.maximum(ovf[j], over)
+                    binds[j], new_cols[j], valids[j] = nb[j], nc[j], nv[j]
+                    ovf[j] = torch.maximum(ovf[j], over[j])
                 row_v = shipped
             else:
                 if mode == "skip":
@@ -743,6 +769,11 @@ class SpmdEngine(EngineBase):
         self._cap_hints: Dict[Tuple, int] = {}
         self._compiles = 0
         self._store_gen = 0
+        # shape sharing inside one _execute_batch group: the group's
+        # edge key and, once its first member ran, (MatchOutput, caps,
+        # attempts) on the device
+        self._shared_run: Optional[Tuple[MatchOutput, List[int], List]] = None
+        self._shared_run_key: Optional[Tuple] = None
         for name in ("batch_shape_hits", "capacity_retries",
                      "overflow_events", "gather_steps", "edge_shipped_steps",
                      "skipped_gathers", "comm_bytes_saved",
@@ -883,7 +914,19 @@ class SpmdEngine(EngineBase):
                 "property labels would match the -1 padding)")
         t0 = time.perf_counter()
         norm = query.normalize()
-        out, caps, attempts = self._run_exact(norm)
+        # inside an _execute_batch group every member has the same
+        # normalized pattern, so the match loop's output is the same:
+        # the first member runs it, the others reuse it and apply only
+        # their own constants below
+        reused = (self._shared_run is not None
+                  and self._shared_run_key == norm.edges)
+        if reused:
+            out, caps, attempts = self._shared_run
+            self._bump("batch_shape_hits")
+        else:
+            out, caps, attempts = self._run_exact(norm)
+            if self._shared_run_key == norm.edges:
+                self._shared_run = (out, caps, attempts)
         # final gather; the constants the normalization stripped are
         # applied on the device before the distinct rows come back
         nmap = query.normalization_map()
@@ -912,7 +955,9 @@ class SpmdEngine(EngineBase):
         w = route.width if route is not None else m
         routed = route is not None and route.width < m
         comm = 0
-        if m > 1:             # 1 site: no peers, nothing ever ships
+        # a reused run shipped nothing for this member: its steps were
+        # ledgered once, for the group's first member
+        if m > 1 and not reused:    # 1 site: no peers, nothing ships
             if self._seed_decimation(norm):
                 self._bump("decimated_seed_queries")
             if routed:
@@ -951,6 +996,33 @@ class SpmdEngine(EngineBase):
             busy = {j: elapsed / max(m, 1) for j in range(m)}
         stats = ExecStats(elapsed, int(comm), touched, busy, n, 1)
         return self._finish(query, QueryResult(bindings, n, stats))
+
+    def _execute_batch(self, batch: List[QueryGraph]) -> List[QueryResult]:
+        """Group the batch by normalized edge key; each group runs the
+        match loop once and its later members reuse the output
+        (``batch_shape_hits``, no comm bytes).  Results come back in
+        input order, with answers identical to sequential execution."""
+        groups: Dict[Tuple, List[int]] = {}
+        for i, q in enumerate(batch):
+            if any(e.prop == PROP_VAR for e in q.edges):
+                # raises in _execute: alone in its group, so the error
+                # surfaces for exactly this query
+                groups.setdefault(("__prop_var__", i), []).append(i)
+            else:
+                groups.setdefault(q.normalize().edges, []).append(i)
+        out: List[Optional[QueryResult]] = [None] * len(batch)
+        for key, idxs in groups.items():
+            # key[:1], not key[0]: a zero-edge query's key is ()
+            share = len(idxs) > 1 and key[:1] != ("__prop_var__",)
+            self._shared_run_key = key if share else None
+            self._shared_run = None
+            try:
+                for i in idxs:
+                    out[i] = self.execute(batch[i])
+            finally:
+                self._shared_run_key = None
+                self._shared_run = None
+        return out
 
     def _stats_extra(self) -> Dict[str, float]:
         # key names follow the reference's catalogue; the join-kernel

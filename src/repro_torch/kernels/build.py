@@ -41,11 +41,13 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: point returns the cudaError_t of its launches
 SIGNATURES = {
     "join_count": ("rt_join_count", (_P, _I, _P, _I, _P, _P, _I, _P, _P)),
-    "pair_semijoin": ("rt_pair_semijoin", (_P, _P, _I, _P, _P, _I, _P, _P)),
+    "pair_semijoin": ("rt_pair_semijoin",
+                      (_P, _L, _L, _P, _L, _L, _I, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _P, _P, _P)),
     "dedup_rows": ("rt_dedup_rows", (_P, _P, _I, _I, _P, _I, _P, _P, _P)),
     "fused_join": ("rt_fused_join",
-                   (_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
-                    _P, _P, _P, _P, _P, _P, _P, _P)),
+                   (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                    _L, _P, _P, _P, _P, _P)),
     "semijoin": ("rt_semijoin", (_P, _I, _P, _I, _P, _P)),
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

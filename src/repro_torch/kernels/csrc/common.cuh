@@ -1,8 +1,10 @@
 // Device helpers shared by the join kernels: branchless binary searches
 // over ascending int32 columns, the row hash, and the exact hash dedup
 // (insert + first-occurrence keep) used by dedup_rows.cu and
-// fused_join.cu.  Every entry point is a plain C function that launches
-// on the caller's stream and returns cudaGetLastError().
+// fused_join.cu (search.cuh adds the searches of a sorted key column
+// that join_count.cu, fused_join.cu and pair_semijoin.cu share).  Every
+// entry point is a plain C function that launches on the caller's
+// stream and returns cudaGetLastError().
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,19 +68,16 @@ __device__ __forceinline__ bool rows_equal(const int* __restrict__ bind,
   return true;
 }
 
-// Open-addressed insert of every valid row into `slots` (H entries, a
-// power of two >= 2C, preset to -1).  Rows with equal values walk the
-// same probe sequence, so exactly one slot per distinct row is claimed
+// Open-addressed insert of valid row i into `slots` (H entries, a power
+// of two >= 2C, preset to -1).  Rows with equal values walk the same
+// probe sequence, so exactly one slot per distinct row is claimed
 // (atomicCAS from -1); a row that meets its own value there lowers the
-// slot to the smaller row index (atomicMin).  When the kernel ends
+// slot to the smaller row index (atomicMin).  Once every row is in,
 // every claimed slot holds the lowest index of its distinct row, and
 // slot_of[i] names row i's slot (-1 for invalid rows).
-__global__ void dedup_insert_kernel(const int* __restrict__ bind,
-                                    const unsigned char* __restrict__ valid,
-                                    int C, int V, int* __restrict__ slots,
-                                    int H, int* __restrict__ slot_of) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
+__device__ __forceinline__ void dedup_insert_row(
+    const int* __restrict__ bind, const unsigned char* __restrict__ valid,
+    int i, int V, int* __restrict__ slots, int H, int* __restrict__ slot_of) {
   if (!valid[i]) {
     slot_of[i] = -1;
     return;
@@ -95,6 +94,14 @@ __global__ void dedup_insert_kernel(const int* __restrict__ bind,
     s = (s + 1u) & mask;
   }
   slot_of[i] = (int)s;
+}
+
+__global__ void dedup_insert_kernel(const int* __restrict__ bind,
+                                    const unsigned char* __restrict__ valid,
+                                    int C, int V, int* __restrict__ slots,
+                                    int H, int* __restrict__ slot_of) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < C) dedup_insert_row(bind, valid, i, V, slots, H, slot_of);
 }
 
 // Row i survives iff it is valid and the lowest index of its value.

@@ -33,56 +33,15 @@
 //  * small calls (fewer probes than the caller's threshold, set in
 //    kernels/ops.py from the card's times) skip the staging and search
 //    the whole column, one thread a probe.
-// lo is written only when the caller asks for it (join_range).
-#include "common.cuh"
+// lo is written only when the caller asks for it (join_range).  The
+// searches live in search.cuh, shared with fused_join.cu and
+// pair_semijoin.cu.
+#include "search.cuh"
 
 namespace {
 
 constexpr int kStagedThreads = 1024;
 constexpr int kStagedBlocksPerSm = 2;
-constexpr int kMaxSamples = 8192;
-
-// End of the run of x that starts at lo (the first index with key > x).
-__device__ __forceinline__ int run_end(const int* __restrict__ keys, int T,
-                                       int lo, int x) {
-  if (lo >= T || keys[lo] != x) return lo;
-  int p = lo, step = 1;  // keys[p] == x
-  while (p + step < T && keys[p + step] == x) {
-    p += step;
-    step <<= 1;
-  }
-  // keys[p] == x, and keys[p + step] > x or p + step >= T
-  const int from = p + 1, to = min(p + step, T);
-  return from + rt::upper_bound(keys + from, to - from, x);
-}
-
-// lo of x in the window [b0, b1] that two staged samples bracket:
-// keys[b0 - 1] = lv < x <= hv = keys[b1].
-__device__ __forceinline__ int window_lower_bound(const int* __restrict__ keys,
-                                                  int b0, int b1, int x,
-                                                  int lv, int hv) {
-  const float len = (float)(b1 - b0 + 1), span = (float)hv - (float)lv;
-  if (4.f * span < len)  // long runs: a guess from the values is poor
-    return b0 + rt::lower_bound(keys + b0, b1 - b0, x);
-  int g = b0 - 1 + (int)(((float)x - (float)lv) / span * len);
-  g = min(max(g, b0), b1);
-  if (keys[g] < x) {  // lo in (g, b1]: gallop right
-    int p = g, step = 1;
-    while (p + step < b1 && keys[p + step] < x) {
-      p += step;
-      step <<= 1;
-    }
-    const int to = min(p + step, b1);
-    return p + 1 + rt::lower_bound(keys + p + 1, to - p - 1, x);
-  }
-  int q = g, step = 1;  // lo in [b0, g]: gallop left
-  while (q - step >= b0 && keys[q - step] >= x) {
-    q -= step;
-    step <<= 1;
-  }
-  const int from = max(q - step + 1, b0);
-  return from + rt::lower_bound(keys + from, q - from, x);
-}
 
 __device__ __forceinline__ void store(int i, int lo, int hi,
                                       int* __restrict__ lo_out,
@@ -99,7 +58,7 @@ __global__ void join_range_direct_kernel(const int* __restrict__ probe, int n,
   if (i >= n) return;
   const int x = probe[i];
   const int lo = rt::lower_bound(keys, T, x);
-  store(i, lo, run_end(keys, T, lo, x), lo_out, cnt_out);
+  store(i, lo, rt::run_end(keys, T, lo, x), lo_out, cnt_out);
 }
 
 __global__ void gather_samples_kernel(const int* __restrict__ keys, int ns,
@@ -109,57 +68,21 @@ __global__ void gather_samples_kernel(const int* __restrict__ keys, int ns,
 }
 
 // samples[j] = keys[j << shift] for the ns = ceil(T / 2^shift) <=
-// kMaxSamples samples.  The first sample >= x, js, brackets lo: the key
-// at (js - 1) << shift is < x and the key at js << shift is >= x, so lo
-// lies in the 2^shift positions after the former.  Likewise the first
-// sample > x brackets the end of x's run.
+// kMaxSamples samples (rt::staged_lower_bound, rt::staged_run_end).
 __global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSm)
 join_range_staged_kernel(const int* __restrict__ probe, int n,
                          const int* __restrict__ keys, int T, int shift,
                          const int* __restrict__ gathered, int ns,
                          int* __restrict__ lo_out, int* __restrict__ cnt_out) {
   extern __shared__ __align__(16) int samples[];  // ns ints
-  for (int j = 4 * threadIdx.x; j < ns; j += 4 * blockDim.x) {
-    if (j + 3 < ns)
-      *reinterpret_cast<int4*>(samples + j) =
-          *reinterpret_cast<const int4*>(gathered + j);
-    else
-      for (int r = j; r < ns; ++r) samples[r] = gathered[r];
-  }
+  rt::load_samples(samples, gathered, ns);
   __syncthreads();
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     const int x = probe[i];
-    const int js = rt::lower_bound(samples, ns, x);
-    int lo = 0;  // js == 0: x <= keys[0] (or the column is empty)
-    if (js == ns && js > 0) {  // past the last sample: the column's tail
-      const int base = ((js - 1) << shift) + 1;
-      lo = base + rt::lower_bound(keys + base, T - base, x);
-    } else if (js > 0) {
-      lo = window_lower_bound(keys, ((js - 1) << shift) + 1, js << shift, x,
-                              samples[js - 1], samples[js]);
-    }
-    int hi = lo;
-    if (lo < T && keys[lo] == x) {
-      // gallop lo+1, lo+2, lo+4: a short run ends within the sector; a
-      // run past lo + 8 ends at the first key > x after the first
-      // sample > x, jh (jh >= 1: samples[0] = keys[0] <= x)
-      int p = lo, step = 1;  // keys[p] == x
-      while (step <= 4 && p + step < T && keys[p + step] == x) {
-        p += step;
-        step <<= 1;
-      }
-      if (p + step < T && keys[p + step] == x) {
-        const int jh = rt::upper_bound(samples, ns, x);
-        const int base = ((jh - 1) << shift) + 1;
-        const int end = jh == ns ? T : (jh << shift);
-        hi = base + rt::upper_bound(keys + base, end - base, x);
-      } else {
-        const int to = min(p + step, T);
-        hi = p + 1 + rt::upper_bound(keys + p + 1, to - p - 1, x);
-      }
-    }
-    store(i, lo, hi, lo_out, cnt_out);
+    const int lo = rt::staged_lower_bound(keys, T, shift, samples, ns, x);
+    store(i, lo, rt::staged_run_end(keys, T, shift, samples, ns, lo, x),
+          lo_out, cnt_out);
   }
 }
 
@@ -167,7 +90,7 @@ join_range_staged_kernel(const int* __restrict__ probe, int n,
 
 // lo_out may be null (counts only).  Calls with at least `stage_min`
 // probes stage the column's top levels in shared memory first, through
-// `scratch` (kMaxSamples ints).
+// `scratch` (rt::kMaxSamples ints).
 extern "C" int rt_join_count(const int* probe, int n, const int* keys, int T,
                              int* lo_out, int* cnt_out, int stage_min,
                              int* scratch, cudaStream_t stream) {
@@ -177,14 +100,11 @@ extern "C" int rt_join_count(const int* probe, int n, const int* keys, int T,
         probe, n, keys, T, lo_out, cnt_out);
     return (int)cudaGetLastError();
   }
-  int shift = 0;
-  while (((long long)T + (1LL << shift) - 1) >> shift > kMaxSamples) ++shift;
-  const int ns = (int)(((long long)T + (1LL << shift) - 1) >> shift);
+  const int shift = rt::sample_shift(T);
+  const int ns = rt::sample_count(T, shift);
   gather_samples_kernel<<<rt::grid_for(ns), rt::kThreads, 0, stream>>>(
       keys, ns, shift, scratch);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = rt::sm_count();
   const long long want = ((long long)n + kStagedThreads - 1) / kStagedThreads;
   const int blocks = (int)(want < (long long)kStagedBlocksPerSm * sms
                                ? want

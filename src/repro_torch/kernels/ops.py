@@ -13,6 +13,7 @@ the reference.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
@@ -80,7 +81,8 @@ def _table(name: str, bind: torch.Tensor, *rows: torch.Tensor) -> None:
 
 def _launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream: tensors pass as
-    their data pointers, ``None`` as a null pointer."""
+    their data pointers, ``None`` as a null pointer, anything else (ints,
+    ctypes arrays of host values) as it is."""
     from .build import kernel
     stream = torch.cuda.current_stream().cuda_stream
     err = kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -196,22 +198,142 @@ def semijoin(queries: torch.Tensor, table_sorted: torch.Tensor
     return out
 
 
+#: most sites one launch of a match-loop join kernel serves
+#: (``rt::kMaxSites``); the wrappers raise above it
+MAX_SITES = 64
+#: pair_semijoin calls with fewer queries (per site) search each table
+#: directly; larger ones on one-run tables stage sampled subjects in
+#: shared memory (``csrc/pair_semijoin.cu``).  Chosen from the card's
+#: device times of both modes at the serve's tiers, which
+#: ``chip_smoke.py`` prints (PERF.md): at 4 sites x 16,384 queries the
+#: two are even, at 4 x 65,536 staging takes well under half the time.
+PAIR_STAGE_MIN_PROBES = 1 << 15
+
+
+def _site_spans(name: str, table: torch.Tensor, m: int,
+                windows: Optional[ref.SiteWindows]
+                ) -> Tuple[list, list, int]:
+    """(offsets, live rows, size) of each site's table in ``table``'s
+    storage: the whole 1-D table for every site, row j of an (m, W)
+    table, or the ``windows`` over those rows (in elements)."""
+    if not 1 <= m <= MAX_SITES:
+        raise ValueError(f"{name}: the kernel serves 1 to {MAX_SITES} "
+                         f"sites a call, got {m}")
+    if table.dim() == 1:
+        if windows is not None:
+            raise ValueError(f"{name}: windows need (m, W) tables")
+        return [0] * m, [table.shape[0]] * m, table.shape[0]
+    W = table.shape[1]
+    if windows is None:
+        return [j * W for j in range(m)], [W] * m, W
+    if len(windows.starts) != m or len(windows.lives) != m \
+            or any(s < 0 or s + windows.size > W for s in windows.starts) \
+            or any(not 0 <= n <= windows.size for n in windows.lives):
+        raise ValueError(f"{name}: windows {windows} do not fit {m} sites "
+                         f"of {W} rows")
+    return ([j * W + s for j, s in enumerate(windows.starts)],
+            list(windows.lives), windows.size)
+
+
+def _host_array(ctype, values) -> ctypes.Array:
+    return (ctype * len(values))(*values)
+
+
+def _query_strides(name: str, q: torch.Tensor, m: int) -> Tuple[int, int]:
+    """(site stride, element stride) of a (C,) or (m, C) int32 query
+    column, read in place (a column of a binding table included)."""
+    if q.dtype != _I32:
+        raise TypeError(f"{name}: expected int32, got {q.dtype}")
+    if q.dim() == 1:
+        return 0, q.stride(0)
+    return q.stride(0), q.stride(1)
+
+
+def _pair_launch(q_s: torch.Tensor, q_o: torch.Tensor, t_s: torch.Tensor,
+                 t_o: torch.Tensor, runs: int,
+                 windows: Optional[ref.SiteWindows], m: int,
+                 stage_min: int = PAIR_STAGE_MIN_PROBES) -> torch.Tensor:
+    """(m, C) membership on the card: one launch, two when staged."""
+    C = q_s.shape[-1]
+    t_s, t_o = _i32("pair_semijoin", t_s), _i32("pair_semijoin", t_o)
+    offs, lives, size = _site_spans("pair_semijoin", t_s, m, windows)
+    if size % runs:
+        raise ValueError(f"pair_semijoin: {size} table rows do not split "
+                         f"into {runs} equal runs")
+    (qs_site, qs_step), (qo_site, qo_step) = (
+        _query_strides("pair_semijoin", q, m) for q in (q_s, q_o))
+    dev = q_s.device
+    out = torch.empty((m, C), dtype=torch.bool, device=dev)
+    staged = runs == 1 and C >= stage_min
+    scratch = torch.empty(m * JOIN_SAMPLES, dtype=_I32,
+                          device=dev) if staged else None
+    _launch("pair_semijoin", q_s, qs_site, qs_step, q_o, qo_site, qo_step,
+            C, t_s, t_o, _host_array(ctypes.c_longlong, offs),
+            _host_array(ctypes.c_int, lives), m, size, runs, stage_min,
+            scratch, out)
+    return out
+
+
 def pair_semijoin(q_s: torch.Tensor, q_o: torch.Tensor,
                   t_s: torch.Tensor, t_o: torch.Tensor) -> torch.Tensor:
     """mask[i] = some table row r has (t_s[r], t_o[r]) == (q_s[i],
-    q_o[i]); neither side needs to be sorted (the table is lexsorted
-    here, as the reference wrapper does outside its kernel)."""
+    q_o[i]); neither side needs to be sorted.  On the card the table is
+    lexsorted first (two stable sorts, as the reference wrapper does
+    outside its kernel), then searched as one run by the kernel of
+    ``pair_semijoin_runs``; the match loop calls that entry instead,
+    with tables that are sorted already."""
     _vectors("pair_semijoin", q_s, q_o)
     _vectors("pair_semijoin", t_s, t_o)
     if not _on_card("pair_semijoin", q_s, q_o, t_s, t_o):
         return ref.pair_semijoin_ref(q_s, q_o, t_s, t_o)
     q_s, q_o = _i32("pair_semijoin", q_s), _i32("pair_semijoin", q_o)
-    t_s, t_o = _i32("pair_semijoin", t_s), _i32("pair_semijoin", t_o)
     order = ref.lexsort((t_o, t_s))
-    ts, to = t_s[order].contiguous(), t_o[order].contiguous()
-    out = torch.empty(q_s.shape, dtype=torch.bool, device=q_s.device)
-    _launch("pair_semijoin", q_s, q_o, q_s.numel(), ts, to, ts.numel(), out)
-    return out
+    return _pair_launch(q_s, q_o, t_s[order], t_o[order], 1, None, 1)[0]
+
+
+def pair_semijoin_runs(q_s: torch.Tensor, q_o: torch.Tensor,
+                       t_s: torch.Tensor, t_o: torch.Tensor, runs: int = 1,
+                       windows: Optional[ref.SiteWindows] = None
+                       ) -> torch.Tensor:
+    """(s, o) membership against tables the caller keeps sorted: each
+    table is ``runs`` equal runs, each lexsorted by (s, o), sentinel
+    pads (INT32_SENTINEL, INT32_SENTINEL) included as rows.
+
+    Queries are (C,), shared by every site, or (m, C), one row a site,
+    any strides (a column of a binding table is read in place).  Tables
+    are (T,), one table for every site, or (m, W), one row a site, of
+    which ``windows`` may name a tail-masked window each (the match
+    loop's CSR windows, pads past each site's live rows).  Returns (C,)
+    when both sides are 1-D, else (m, C).
+
+    On the card it replaces the TPU's ``semijoin.py::_pair_kernel``
+    with ``csrc/pair_semijoin.cu``, bound by the L2 sectors of its
+    dependent loads: one (s, o) lower-bound search per query and run,
+    no sort; one-run calls of at least ``PAIR_STAGE_MIN_PROBES`` queries
+    stage sampled subjects in shared memory.  On the CPU the plain
+    version runs after a check that every run is sorted (a ValueError
+    otherwise); on the card nothing is checked."""
+    if q_s.shape != q_o.shape or t_s.shape != t_o.shape \
+            or q_s.dim() not in (1, 2) or t_s.dim() not in (1, 2) \
+            or runs < 1:
+        raise ValueError(f"pair_semijoin: expected (C,) or (m, C) query "
+                         f"pairs, (T,) or (m, W) table pairs and runs >= 1, "
+                         f"got {tuple(q_s.shape)}, {tuple(q_o.shape)}, "
+                         f"{tuple(t_s.shape)}, {tuple(t_o.shape)}, {runs}")
+    if q_s.dim() == 2 and t_s.dim() == 2 and q_s.shape[0] != t_s.shape[0]:
+        raise ValueError(f"pair_semijoin: {q_s.shape[0]} query rows for "
+                         f"{t_s.shape[0]} sites")
+    if not _on_card("pair_semijoin", q_s, q_o, t_s, t_o):
+        tabs = ref.site_tables(t_s, t_o, windows, INT32_SENTINEL) \
+            if t_s.dim() == 2 else (t_s, t_o)
+        if tabs[0].shape[-1] % runs or not ref.runs_sorted(*tabs, runs):
+            raise ValueError(f"pair_semijoin: the table is not {runs} "
+                             f"equal runs lexsorted by (s, o)")
+        return ref.pair_semijoin_runs_ref(q_s, q_o, t_s, t_o, runs, windows)
+    m = t_s.shape[0] if t_s.dim() == 2 else (
+        q_s.shape[0] if q_s.dim() == 2 else 1)
+    out = _pair_launch(q_s, q_o, t_s, t_o, runs, windows, m)
+    return out[0] if q_s.dim() == 1 and t_s.dim() == 1 else out
 
 
 def dedup_rows(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -234,19 +356,92 @@ def dedup_rows(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return keep
 
 
+#: rows of one tile of the fused join's scan (``kScanTile``)
+FUSED_SCAN_TILE = 1024
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _fused_join_scratch(C: int, m: int) -> int:
+    """int32 scratch of one ``rt_fused_join`` launch for m sites (the
+    layout in ``csrc/fused_join.cu``)."""
+    ntiles = max(1, -(-C // FUSED_SCAN_TILE))
+    return (_round4(2 * m * ntiles) + _hash_size(C) + _round4(m)
+            + C + 2 * m * C + m)
+
+
+def fused_join_sites(bind: torch.Tensor, valid: torch.Tensor,
+                     probe: torch.Tensor, keys: torch.Tensor,
+                     payload: torch.Tensor, capacity: int,
+                     windows: Optional[ref.SiteWindows] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Dedup the valid rows of one gathered (C, V) binding table, then
+    join-expand the survivors' ``probe`` keys against each site's sorted
+    (keys -> payload) edge table, row j of the (m, W) ``keys`` /
+    ``payload`` (or ``windows`` over them, payload pads -1), into
+    ``capacity`` rows a site.  Returns (new_bind (m, capacity, V),
+    new_col (m, capacity), new_valid (m, capacity), overflow (m,)),
+    overflow counting the rows that did not fit, with the int32 wrap
+    guard of ``ref.expand_from_counts``.  ``probe`` may be any 1-D view
+    (a column of ``bind`` is read in place).
+
+    On the card it replaces the TPU's ``semijoin.py::_fused_join_kernel``
+    with ``csrc/fused_join.cu``, bound by memory and search latency:
+    four device operations for all m sites (one memset; the hash insert
+    once; a single-pass scan with decoupled look-back over grid.y =
+    site; an expansion by output tile).  Each site's rows keep the input order (survivors in input order,
+    matches in key order); the plain version, a loop over
+    ``fused_join_ref``, keeps the sorted dedup order: the two agree on
+    each site's row multiset and overflow count."""
+    _table("fused_join", bind, valid, probe)
+    if keys.dim() != 2 or payload.shape != keys.shape:
+        raise ValueError(f"fused_join: expected (m, W) key and payload "
+                         f"tables, got {tuple(keys.shape)}, "
+                         f"{tuple(payload.shape)}")
+    if capacity < 0:
+        raise ValueError(f"fused_join: capacity must be >= 0, got {capacity}")
+    if not _on_card("fused_join", bind, valid, probe, keys, payload):
+        return ref.fused_join_sites_ref(bind, valid, probe, keys, payload,
+                                        capacity, windows)
+    C, V = bind.shape
+    if V == 0:
+        raise ValueError("fused_join: the kernel needs at least one column")
+    if probe.dtype != _I32:
+        raise TypeError(f"fused_join: expected int32, got {probe.dtype}")
+    bind, valid = _i32("fused_join", bind), _flags("fused_join", valid)
+    keys = _i32("fused_join", keys)
+    payload = _i32("fused_join", payload)
+    m = keys.shape[0]
+    offs, lives, size = _site_spans("fused_join", keys, m, windows)
+    dev = bind.device
+    n_scratch = _fused_join_scratch(C, m)
+    scratch = torch.empty(n_scratch, dtype=_I32, device=dev)
+    out_bind = torch.empty((m, capacity, V), dtype=_I32, device=dev)
+    out_col = torch.empty((m, capacity), dtype=_I32, device=dev)
+    out_valid = torch.empty((m, capacity), dtype=torch.bool, device=dev)
+    over = torch.empty(m, dtype=_I32, device=dev)
+    _launch("fused_join", bind, valid, probe, probe.stride(0), C, V, keys,
+            payload, _host_array(ctypes.c_longlong, offs),
+            _host_array(ctypes.c_int, lives), m, size, capacity, scratch,
+            n_scratch, out_bind, out_col, out_valid, over)
+    return out_bind, out_col, out_valid, over
+
+
 def fused_join(bind: torch.Tensor, valid: torch.Tensor, probe: torch.Tensor,
                keys_sorted: torch.Tensor, payload: torch.Tensor,
                capacity: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
-    """Dedup the valid rows of a gathered (C, V) binding table, then
-    join-expand the survivors' ``probe`` keys against a sorted (keys ->
-    payload) edge table into ``capacity`` rows.  Returns (new_bind
-    (capacity, V), new_col, new_valid, overflow) where overflow counts
-    result rows that did not fit (with the int32 wrap guard of
-    ``ref.expand_from_counts``).  The kernel keeps the input row order
-    and the plain version the sorted dedup order; both give the same
-    row multiset and overflow count."""
+    """``fused_join_sites`` for one site: dedup the valid rows of a
+    gathered (C, V) binding table, then join-expand the survivors'
+    ``probe`` keys against a sorted (keys -> payload) edge table into
+    ``capacity`` rows.  Returns (new_bind (capacity, V), new_col,
+    new_valid, overflow).  The kernel keeps the input row order and the
+    plain version the sorted dedup order; both give the same row
+    multiset and overflow count."""
     _table("fused_join", bind, valid, probe)
     _vectors("fused_join", keys_sorted, payload)
     if capacity < 0:
@@ -254,27 +449,9 @@ def fused_join(bind: torch.Tensor, valid: torch.Tensor, probe: torch.Tensor,
     if not _on_card("fused_join", bind, valid, probe, keys_sorted, payload):
         return ref.fused_join_ref(bind, valid, probe, keys_sorted, payload,
                                   capacity)
-    C, V = bind.shape
-    if V == 0:
-        raise ValueError("fused_join: the kernel needs at least one column")
-    bind, valid = _i32("fused_join", bind), _flags("fused_join", valid)
-    probe = _i32("fused_join", probe)
-    keys = _i32("fused_join", keys_sorted)
-    payload = _i32("fused_join", payload)
-    dev = bind.device
-    H = _hash_size(C)
-    scratch = torch.empty(H + 4 * C + (C + 4095) // 4096 + 2, dtype=_I32,
-                          device=dev)
-    slots, slot_of, lo, cnt, start, tile_sums, scalars = torch.split(
-        scratch, [H, C, C, C, C, (C + 4095) // 4096, 2])
-    out_bind = torch.empty((capacity, V), dtype=_I32, device=dev)
-    out_col = torch.empty(capacity, dtype=_I32, device=dev)
-    out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
-    over = torch.zeros(1, dtype=_I32, device=dev)
-    _launch("fused_join", bind, valid, probe, C, V, keys, payload,
-            keys.numel(), capacity, slots, H, slot_of, lo, cnt, start,
-            tile_sums, scalars, out_bind, out_col, out_valid, over)
-    return out_bind, out_col, out_valid, over[0]
+    out = fused_join_sites(bind, valid, probe, keys_sorted[None],
+                           payload[None], capacity)
+    return out[0][0], out[1][0], out[2][0], out[3][0]
 
 
 #: head dims the flash kernel is built for

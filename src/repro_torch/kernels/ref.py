@@ -10,7 +10,7 @@ sorts, last key first.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -84,6 +84,69 @@ def pair_semijoin_ref(q_s: torch.Tensor, q_o: torch.Tensor,
     out = torch.zeros(T + Q, dtype=torch.bool, device=cs.device)
     out[order] = hit
     return out[T:]
+
+
+class SiteWindows(NamedTuple):
+    """Site j's table is ``size`` rows of row j of an (m, W) array,
+    from column ``starts[j]``; its first ``lives[j]`` rows are stored
+    rows and the rest read as pads (key ``INT32_SENTINEL``, payload the
+    caller's fill).  These are the match loop's tail-masked windows
+    over the store's CSR arrays, which the kernels read in place."""
+    starts: Tuple[int, ...]
+    lives: Tuple[int, ...]
+    size: int
+
+
+def site_tables(keys: torch.Tensor, payload: torch.Tensor,
+                windows: Optional[SiteWindows], pay_fill: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (m, size) key and payload tables ``windows`` names in the
+    (m, W) arrays (the arrays themselves without ``windows``)."""
+    if windows is None:
+        return keys, payload
+    idx = torch.arange(windows.size, device=keys.device)
+    ks, ps = [], []
+    for j, (start, live) in enumerate(zip(windows.starts, windows.lives)):
+        stop = start + windows.size
+        ks.append(torch.where(idx < live, keys[j, start:stop],
+                              INT32_SENTINEL))
+        ps.append(torch.where(idx < live, payload[j, start:stop], pay_fill))
+    return torch.stack(ks), torch.stack(ps)
+
+
+def runs_sorted(t_s: torch.Tensor, t_o: torch.Tensor, runs: int) -> bool:
+    """Every one of the ``runs`` equal runs of each table row (the last
+    dimension) is lexsorted by (s, o)."""
+    if t_s.numel() == 0:
+        return True
+    s = t_s.reshape(-1, t_s.shape[-1] // runs)
+    o = t_o.reshape(s.shape)
+    ok = (s[:, 1:] > s[:, :-1]) | ((s[:, 1:] == s[:, :-1])
+                                  & (o[:, 1:] >= o[:, :-1]))
+    return bool(ok.all())
+
+
+def pair_semijoin_runs_ref(q_s: torch.Tensor, q_o: torch.Tensor,
+                           t_s: torch.Tensor, t_o: torch.Tensor,
+                           runs: int = 1,
+                           windows: Optional[SiteWindows] = None
+                           ) -> torch.Tensor:
+    """``pair_semijoin_ref`` per site: queries (C,) shared or (m, C) one
+    row a site; tables (T,) shared or (m, W) one row a site (through
+    ``windows``, pads (INT32_SENTINEL, INT32_SENTINEL)).  Returns (C,)
+    when both sides are 1-D, else (m, C).  Membership does not depend
+    on order, so ``runs`` only shapes the kernel's search."""
+    if q_s.dim() == 1 and t_s.dim() == 1:
+        return pair_semijoin_ref(q_s, q_o, t_s, t_o)
+    if t_s.dim() == 2:
+        t_s, t_o = site_tables(t_s, t_o, windows, INT32_SENTINEL)
+    m = t_s.shape[0] if t_s.dim() == 2 else q_s.shape[0]
+
+    def site(a, j):
+        return a[j] if a.dim() == 2 else a
+    return torch.stack([pair_semijoin_ref(site(q_s, j), site(q_o, j),
+                                          site(t_s, j), site(t_o, j))
+                        for j in range(m)])
 
 
 def dedup_padded_ref(bind: torch.Tensor, valid: torch.Tensor
@@ -182,6 +245,20 @@ def fused_join_ref(bind: torch.Tensor, valid: torch.Tensor,
     db, dv, order = dedup_padded_ref(bind, valid)
     return expand_fixed_ref(db, dv, probe[order], keys_sorted, payload,
                             capacity)
+
+
+def fused_join_sites_ref(bind: torch.Tensor, valid: torch.Tensor,
+                         probe: torch.Tensor, keys: torch.Tensor,
+                         payload: torch.Tensor, capacity: int,
+                         windows: Optional[SiteWindows] = None):
+    """``fused_join_ref`` of one binding table against each site's
+    table, row j of the (m, W) ``keys`` / ``payload`` (through
+    ``windows``, payload pads -1).  Returns (new_bind (m, capacity, V),
+    new_col (m, capacity), new_valid (m, capacity), overflow (m,))."""
+    keys, payload = site_tables(keys, payload, windows, -1)
+    outs = [fused_join_ref(bind, valid, probe, keys[j], payload[j], capacity)
+            for j in range(keys.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -38,7 +38,8 @@ print(len(names), "modules")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_baseline.py"]
 
 
 def test_port_imports_with_jax_and_reference_blocked():

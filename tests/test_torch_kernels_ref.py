@@ -387,3 +387,171 @@ def test_expand_fixed_searches_the_key_column_only_in_join_range(
     assert calls["join_range"] == 1
     assert calls["searchsorted_on_keys"] == 0
     assert int(got[3]) == 0
+
+
+def _site_arrays(m, W, size, seed):
+    """(m, W) CSR-like key/payload arrays holding one sorted (key,
+    payload) run per site at its own offset, and the windows over them
+    (one site's window empty)."""
+    rng = np.random.default_rng(seed)
+    keys = np.full((m, W), INT32_MAX, np.int32)
+    pay = np.full((m, W), -1, np.int32)
+    starts, lives = [], []
+    for j in range(m):
+        n = 0 if j == 1 else int(rng.integers(1, size + 1))
+        start = int(rng.integers(0, W - size + 1))
+        k = rng.integers(0, 40, n).astype(np.int32)
+        p = rng.integers(0, 99, n).astype(np.int32)
+        order = np.lexsort((p, k))
+        keys[j, start:start + n], pay[j, start:start + n] = k[order], p[order]
+        # the rows past the window's live part belong to other runs
+        keys[j, start + n:] = rng.integers(0, 40, W - start - n)
+        starts.append(start)
+        lives.append(n)
+    return keys, pay, ref.SiteWindows(tuple(starts), tuple(lives), size)
+
+
+@pytest.mark.parametrize("C,V,capacity", [(64, 2, 256), (128, 3, 512),
+                                          (256, 4, 64)])
+@pytest.mark.parametrize("style", ["random", "dup_heavy", "all_sentinel"])
+def test_fused_join_sites_matches_reference_per_site(C, V, capacity, style,
+                                                     monkeypatch,
+                                                     no_launches):
+    """Each site of one call equals ``fused_join_ref`` against that
+    site's window and the JAX package's ``_dedup_padded`` +
+    ``_expand_fixed`` composition (REPRO_SPMD_PALLAS=0)."""
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    bind, valid = _bind_case(C, V, style, seed=C + V)
+    keys, pay, win = _site_arrays(4, 300, 96, seed=C * V)
+    got = ops.fused_join_sites(_t(bind), _t(valid), _t(bind)[:, 0], _t(keys),
+                               _t(pay), capacity, win)
+    assert [tuple(g.shape) for g in got] == [(4, capacity, V),
+                                             (4, capacity), (4, capacity),
+                                             (4,)]
+    tk, tp = ref.site_tables(_t(keys), _t(pay), win, -1)
+    for j in range(4):
+        one = ref.fused_join_ref(_t(bind), _t(valid), _t(bind[:, 0]), tk[j],
+                                 tp[j], capacity)
+        want = _reference_join(bind, valid, tk[j].numpy(), tp[j].numpy(),
+                               capacity)
+        for g, o, w in zip(got, one, want):
+            _eq(g[j], o)
+            _eq(g[j], w)
+
+
+def test_fused_join_sites_overflow_and_wrap_per_site(monkeypatch,
+                                                     no_launches):
+    """Overflow counts are per site, the wrap guard included: only the
+    site whose count could wrap the int32 scan reports capacity + 1."""
+    monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
+    C, capacity = 1 << 16, 16
+    bind = np.zeros((C, 1), np.int32)
+    valid = np.zeros(C, bool)
+    valid[:3] = True
+    bind[:3, 0] = [5, 6, 7]
+    rng = np.random.default_rng(2)
+    keys = np.sort(rng.integers(0, 12, (3, 40000)), axis=1).astype(np.int32)
+    keys[0] = 5                                   # 40000 > (2^31-1) / C
+    pay = np.arange(3 * 40000, dtype=np.int32).reshape(3, 40000)
+    over = ops.fused_join_sites(_t(bind), _t(valid), _t(bind[:, 0]),
+                                _t(keys), _t(pay), capacity)[3]
+    for j in range(3):
+        want = _reference_join(bind, valid, keys[j], pay[j], capacity)[3]
+        assert int(over[j]) == int(want)
+    assert int(over[0]) == capacity + 1
+    assert bool((over[1:] != capacity + 1).all())
+
+
+def _sorted_pair_table(n_rows, n_pad, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 30, n_rows).astype(np.int32)
+    o = rng.integers(0, 30, n_rows).astype(np.int32)
+    order = np.lexsort((o, s))
+    pad = np.full(n_pad, INT32_MAX, np.int32)
+    return np.concatenate([s[order], pad]), np.concatenate([o[order], pad])
+
+
+def _pair_queries(C, seed):
+    rng = np.random.default_rng(seed)
+    q_s, q_o = (rng.integers(0, 32, C).astype(np.int32) for _ in range(2))
+    q_s[:3], q_o[:3] = INT32_MAX, INT32_MAX        # the pad pair
+    return q_s, q_o
+
+
+def _j_pair(q_s, q_o, t_s, t_o):
+    return jref.pair_semijoin_ref(jnp.asarray(q_s), jnp.asarray(q_o),
+                                  jnp.asarray(t_s), jnp.asarray(t_o))
+
+
+@pytest.mark.parametrize("runs", [1, 4])
+@pytest.mark.parametrize("C", [0, 1, 300])
+def test_pair_semijoin_runs_matches_reference(C, runs, no_launches):
+    """One table of sorted runs with sentinel tails, queries shared
+    (C,) and one row a site (m, C), against the JAX package's oracle."""
+    parts = [_sorted_pair_table(50 + 3 * r, 14 - 3 * r, seed=r)
+             for r in range(runs)]
+    t_s = np.concatenate([p[0] for p in parts])
+    t_o = np.concatenate([p[1] for p in parts])
+    q_s, q_o = _pair_queries(C, seed=C)
+    got = ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(t_s), _t(t_o), runs)
+    assert got.shape == (C,)
+    _eq(got, _j_pair(q_s, q_o, t_s, t_o))
+    per_site = np.stack([np.roll(q_s, j) for j in range(3)])
+    per_site_o = np.stack([np.roll(q_o, j) for j in range(3)])
+    got = ops.pair_semijoin_runs(_t(per_site), _t(per_site_o), _t(t_s),
+                                 _t(t_o), runs)
+    assert got.shape == (3, C)
+    for j in range(3):
+        _eq(got[j], _j_pair(per_site[j], per_site_o[j], t_s, t_o))
+
+
+def test_pair_semijoin_runs_sites_windows(no_launches):
+    """The sites form on windows of (m, W) arrays: pads past each
+    site's live rows are (INT32_MAX, INT32_MAX) rows, one window is
+    empty, and an empty table matches nothing."""
+    keys, pay, win = _site_arrays(4, 300, 96, seed=5)
+    q_s, q_o = _pair_queries(200, seed=6)
+    pick = np.random.default_rng(7).integers(0, win.lives[0], 50)
+    q_s[3:53] = keys[0, win.starts[0] + pick]
+    q_o[3:53] = pay[0, win.starts[0] + pick]
+    got = ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(keys), _t(pay), 1,
+                                 win)
+    assert got.shape == (4, 200) and bool(got[0, 3:53].all())
+    for j in range(4):
+        s0, n = win.starts[j], win.lives[j]
+        t_s = np.concatenate([keys[j, s0:s0 + n],
+                              np.full(win.size - n, INT32_MAX, np.int32)])
+        t_o = np.concatenate([pay[j, s0:s0 + n],
+                              np.full(win.size - n, INT32_MAX, np.int32)])
+        _eq(got[j], _j_pair(q_s, q_o, t_s, t_o))
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert not ops.pair_semijoin_runs(_t(q_s), _t(q_o), empty, empty).any()
+
+
+def test_pair_semijoin_runs_rejects_unsorted_runs():
+    """On the CPU the entry checks the contract it relies on on the card:
+    every run lexsorted by (s, o)."""
+    t_s, t_o = _sorted_pair_table(40, 8, seed=1)
+    q_s, q_o = _pair_queries(20, seed=2)
+    both = (np.concatenate([t_s, t_s]), np.concatenate([t_o, t_o]))
+    ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(both[0]), _t(both[1]), 2)
+    with pytest.raises(ValueError):      # two sorted runs are not one
+        ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(both[0]), _t(both[1]), 1)
+    s_run = np.array([1, 1, 2, 3], np.int32)
+    ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(s_run),
+                           _t(np.array([5, 6, 0, 0], np.int32)))
+    with pytest.raises(ValueError):      # objects out of order in a run
+        ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(s_run),
+                               _t(np.array([6, 5, 0, 0], np.int32)))
+    with pytest.raises(ValueError):      # runs that do not split the table
+        ops.pair_semijoin_runs(_t(q_s), _t(q_o), _t(t_s), _t(t_o), 7)
+
+
+@pytest.mark.parametrize("m", [0, ops.MAX_SITES + 1])
+def test_site_spans_refuse_more_sites_than_one_launch_serves(m):
+    """The card's launchers take 1 to ``MAX_SITES`` sites a call and
+    raise for any other count before launching."""
+    table = torch.zeros((max(m, 1), 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="sites a call"):
+        ops._site_spans("fused_join", table, m, None)
+    ops._site_spans("fused_join", table[:1], 1, None)
