@@ -3,10 +3,14 @@
 
 Builds the WatDiv plan of ``chip_smoke.py``, times a gather step's joins
 as one call per site through the one-site entry points
-(``ops.fused_join``, ``ops.pair_semijoin``), serves the 67 queries with
+(``ops.fused_join``, ``ops.pair_semijoin``) and as one call for all
+sites (``ops.fused_join_sites``, ``ops.pair_semijoin_runs``: the
+``sites times`` lines), the dedup as the match loop applied it before
+the masked entry (``ops.dedup_rows`` then a ``torch.where``) and
+``ops.semijoin`` (the ``path forms`` line), serves the 67 queries with
 ``execute`` and profiles one warm pass; it checks nothing and prints no
 result line.  It needs nothing of the port beyond ``Session`` and those
-two entry points, so it also measures a checkout of an earlier commit:
+entry points, so it also measures a checkout of an earlier commit:
 copy this file and ``chip_smoke.py`` into that checkout's root and run
 
     python3 chip_baseline.py
@@ -38,7 +42,11 @@ def main() -> None:
     def ints(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=gen,
                              dtype=torch.int32).cuda()
-    smoke.one_site_times(session.engine.store, ints)
+    store = session.engine.store
+    smoke.one_site_times(store, ints)
+    smoke.sites_times(store.csr_sub_s, store.csr_sub_o,
+                      smoke.largest_windows(store), ints)
+    smoke.path_form_times(store, masked=False)
     queries = smoke.served_queries(graph)
     t0 = time.perf_counter()
     for q in queries:

@@ -21,9 +21,15 @@ Phases, each fatal on any error or mismatch:
    rows, 2 to 6 columns, the store's largest property window) and on
    the edge cases of the reference's kernel tests; all comparisons are
    exact (int32 / bool), ``join_range``'s ``lo`` included.  ``semijoin``,
-   on no path, is checked at the same shapes.  ``join_count``'s two
-   search modes are held exactly and timed at the serve's four
-   probe-table sizes (and on a seeded column of Zipf-length runs).
+   on no path, is checked at the same shapes.  ``join_count``'s and
+   ``semijoin``'s two search modes are held exactly and timed at the
+   serve's four probe-table sizes (and on a seeded column of Zipf-length
+   runs; ``semijoin`` also against ``torch.isin``).  ``dedup_rows`` and
+   its path form ``dedup_rows_masked`` are held exactly (mask and table)
+   in six table styles, two of them all-gathers of replicated fragments
+   (shuffled; compacted, as the match loop holds them), beside the count
+   of distinct-row pairs with equal 32-bit row hashes (the full-row
+   compare's cases), and timed at every tier.
    Times: the wrapper, its plain version and, where one PyTorch call
    computes the same function, that call.  The match loop's sites
    entry points (``fused_join_sites``, ``pair_semijoin_runs``) are held
@@ -33,7 +39,10 @@ Phases, each fatal on any error or mismatch:
    in the earlier kernel's order, rebuilt from plain versions.  Both
    are timed at the serve's tiers (CUDA events, device time and device
    operations per call), with the site windows read in place and
-   copied first, beside the same work as one call per site.
+   copied first, beside the same work as one call per site.  The dedup
+   as the match loop applies it (and as earlier trees did: the mask,
+   then a ``torch.where``) and ``semijoin`` are timed on fixed seeded
+   inputs that ``chip_baseline.py`` repeats in an earlier checkout.
 4. serve: launch counters reset, WatDiv template queries with one term
    bound to a data constant plus a star, a chain and a cycle, counters
    read; every answer set equals the same engine run on the plain
@@ -237,7 +246,40 @@ def device_ms(fn: Callable[[], object], reps: int = 50) -> float:
     return device_stats(fn, reps)[0]
 
 
-def join_modes(keys: torch.Tensor, live: int, ints) -> None:
+def semijoin_modes(what: str, col: torch.Tensor, probe: torch.Tensor,
+                   rec) -> None:
+    """semijoin's two search modes (direct; staged, the table's samples
+    in shared memory) and ``torch.isin`` on one column: each mode held
+    exactly against the plain version and equal to ``torch.isin``.  The
+    wrapper's threshold between the modes (``ops.SEMI_STAGE_MIN_PROBES``)
+    is read from the device times; ``*_ms`` are CUDA events over
+    back-to-back calls (the host's launch cost included)."""
+    from repro_torch.kernels import ops, ref
+    C = probe.numel()
+    want = ref.semijoin_mask_ref(probe, col)
+    isin = torch.isin(probe, col)
+    if bool((isin != want).any()):
+        fail(f"semijoin C={C} {what}: torch.isin differs from the plain "
+             f"version")
+    times = {}
+    for mode, stage_min in (("direct", C + 1), ("staged", 0)):
+        got = ops._semijoin_launch(probe, col, stage_min)
+        rec("semijoin", _max_err(got, want, f"semijoin {mode} C={C} {what}"))
+        if bool((got != isin).any()):
+            fail(f"semijoin {mode} C={C} {what}: differs from torch.isin")
+        fn = (lambda sm: lambda: ops._semijoin_launch(probe, col, sm)
+              )(stage_min)
+        times[f"{mode}_ms"] = cuda_ms(fn, reps=50)
+        times[f"{mode}_device_ms"] = device_ms(fn)
+    times["semijoin_ms"] = cuda_ms(lambda: ops.semijoin(probe, col), reps=50)
+    times["isin_ms"] = cuda_ms(lambda: torch.isin(probe, col), reps=50)
+    times["isin_device_ms"] = device_ms(lambda: torch.isin(probe, col))
+    print(f"semijoin modes, {what}, C={C} T={col.numel()} (threshold "
+          f"{ops.SEMI_STAGE_MIN_PROBES} queries): "
+          + ", ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+
+
+def join_modes(keys: torch.Tensor, live: int, ints, rec) -> None:
     """join_count's two search modes (direct; staged, the column's top
     levels in shared memory), join_range and the library's searchsorted
     pair at the serve's four probe-table sizes on the store's largest
@@ -246,7 +288,7 @@ def join_modes(keys: torch.Tensor, live: int, ints) -> None:
     wrapper's threshold between the modes (``ops.JOIN_STAGE_MIN_PROBES``)
     is read from the device times (the host's launch cost is the same
     for both); ``*_ms`` include it (CUDA events over back-to-back
-    calls)."""
+    calls).  ``semijoin_modes`` follows on each column and its probes."""
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(4)
     runs = np.minimum(rng.zipf(1.6, size=keys.numel()), 50000)
@@ -285,6 +327,154 @@ def join_modes(keys: torch.Tensor, live: int, ints) -> None:
               f"{ops.JOIN_STAGE_MIN_PROBES} probes): "
               + ", ".join(f"{k}={v:.4f}" for k, v in times.items()),
               flush=True)
+        semijoin_modes(what, col, probe, rec)
+
+
+#: binding-table styles of the dedup and fused-join checks
+#: (``binding_table``)
+TABLE_STYLES = ("dup_heavy", "random", "all_sentinel", "distinct",
+                "gathered", "packed")
+
+
+def binding_table(style, cap, V, ints, gen, dev, lo, hi):
+    """A (SITES x cap, V) int32 binding table and its valid mask, values
+    in [lo, hi).  "gathered" is an all-gather of replicated fragments:
+    one site table of cap rows in each of the SITES blocks, each block
+    shuffled, about 30% of rows invalid; "packed" the same of compacted
+    site tables, as the match loop holds them: cap / 4 rows in another
+    order at the front of each block, then padding.  Invalid rows are
+    -1 except in "distinct"."""
+    C = SITES * cap
+    n = cap if style == "gathered" else cap // 4
+    if style == "dup_heavy":
+        bind = ints(0, 3, C, V)
+    elif style == "distinct":
+        bind = torch.arange(C * V, dtype=torch.int32, device=dev).reshape(C, V)
+    elif style in ("gathered", "packed"):
+        site = ints(lo, hi, n, V)
+        bind = torch.cat([torch.cat([site[torch.randperm(
+            n, generator=gen).to(dev)], site.new_full((cap - n, V), -1)])
+            for _ in range(SITES)])
+    else:
+        bind = ints(lo, hi, C, V)
+    if style == "all_sentinel":
+        valid = torch.zeros(C, dtype=torch.bool, device=dev)
+    elif style == "packed":
+        valid = torch.arange(C, device=dev) % cap < n
+    else:
+        valid = ints(0, 10, C) < 7
+    if style != "distinct":
+        bind = torch.where(valid[:, None], bind, -1)
+    return bind, valid
+
+
+def check_dedup(bind, valid, what) -> int:
+    """``dedup_rows`` and ``dedup_rows_masked`` on the card against their
+    plain versions: the keep mask and the masked table, exact.  Returns
+    the largest error (0; any difference fails)."""
+    from repro_torch.kernels import ops, ref
+    want = ref.dedup_rows_ref(bind, valid)
+    _max_err(ops.dedup_rows(bind, valid), want, f"dedup_rows {what}")
+    got_b, got_k = ops.dedup_rows_masked(bind, valid)
+    _max_err(got_k, want, f"dedup_rows_masked {what} keep")
+    _max_err(got_b, torch.where(want[:, None], bind, -1),
+             f"dedup_rows_masked {what} table")
+    return 0
+
+
+def hash_collisions(bind, valid) -> int:
+    """Pairs of distinct valid rows with equal 32-bit row hashes (the
+    kernel's hash, through its plain version ``ref.row_hash_ref``): the
+    rows on which the dedup's full-row compare meets a different row."""
+    from repro_torch.kernels import ref
+    rows = torch.unique(bind[valid], dim=0)
+    if rows.shape[0] < 2:
+        return 0
+    counts = torch.unique(ref.row_hash_ref(rows), return_counts=True)[1]
+    return int((counts * (counts - 1) // 2).sum())
+
+
+def dedup_modes(bind, valid, what) -> None:
+    """CUDA-event ms (back to back, the host's cost included), device ms
+    and device operations a call of ``dedup_rows`` and of
+    ``dedup_rows_masked``, and of the mask then a ``torch.where`` (the
+    match loop's form before the masked entry)."""
+    from repro_torch.kernels import ops
+    calls = {"dedup_rows": lambda: ops.dedup_rows(bind, valid),
+             "dedup_rows_masked": lambda: ops.dedup_rows_masked(bind, valid),
+             "dedup_rows + where": lambda: torch.where(
+                 ops.dedup_rows(bind, valid)[:, None], bind, -1)}
+    parts = []
+    for name, fn in calls.items():
+        dms, dops = device_stats(fn)
+        parts.append(f"{name} ms={cuda_ms(fn, reps=50):.4f} device_ms="
+                     f"{dms:.4f} device_ops={dops:.1f}")
+    print(f"dedup modes {what}: " + "; ".join(parts), flush=True)
+
+
+def largest_window(store):
+    """The store's largest property window as the kernel checks read it:
+    (keys, payload, object-sorted objects, live rows, property, site,
+    first row); each column has T rows, pads past the live ones."""
+    from repro_torch.constants import INT32_SENTINEL
+    windows = [store.prop_window(p)
+               for p in range(store.csr_offs.shape[1] - 1)]
+    prop = int(np.argmax(windows))
+    T = windows[prop]
+    j = int(np.argmax(store.prop_dev_rows[:, prop]))
+    start, stop = int(store.csr_offs[j, prop]), int(store.csr_offs[j, prop + 1])
+    live = torch.arange(T, device=store.device) < stop - start
+    keys = torch.where(live, store.csr_sub_s[j, start:start + T],
+                       INT32_SENTINEL).contiguous()
+    payload = torch.where(live, store.csr_sub_o[j, start:start + T],
+                          -1).contiguous()
+    objs = torch.where(live, store.csr_obj_o[j, start:start + T],
+                       INT32_SENTINEL).contiguous()
+    return keys, payload, objs, stop - start, prop, j, start
+
+
+def path_form_times(store, masked: bool) -> None:
+    """At the main path's top shape (C = SITES x 2^18 rows, V = 4) on the
+    store's largest window: CUDA-event ms (back to back), device ms and
+    device operations a call of the dedup as the match loop applies it,
+    on a gathered, a packed and a random table (``binding_table``), and
+    of ``semijoin`` with every query a key of the window.  The dedup
+    forms: the mask then a ``torch.where`` (the earlier trees' path)
+    and, with ``masked``, the one-call ``dedup_rows_masked``.  The
+    inputs come from a seed of their own, so ``chip_baseline.py`` times
+    the same ones in a checkout of an earlier commit."""
+    from repro_torch.kernels import ops
+    dev = store.device
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+    keys, _p, _o, live, _prop, _j, _s = largest_window(store)
+    kmin, kmax = int(keys[0]), int(keys[live - 1])
+    cap = 1 << 18
+    C, V = SITES * cap, 4
+    probe = keys[ints(0, live, C).long()]
+    calls = {}
+    for style in ("gathered", "packed", "random"):
+        bind, valid = binding_table(style, cap, V, ints, gen, dev, kmin,
+                                    kmax + 1)
+        calls[f"dedup_rows + where, {style}"] = (
+            lambda b, v: lambda: torch.where(ops.dedup_rows(b, v)[:, None],
+                                             b, -1))(bind, valid)
+        if masked:
+            calls[f"dedup_rows_masked, {style}"] = (
+                lambda b, v: lambda: ops.dedup_rows_masked(b, v))(bind, valid)
+    calls["semijoin"] = lambda: ops.semijoin(probe, keys)
+    parts = []
+    for name, fn in calls.items():
+        dms, dops = device_stats(fn)
+        parts.append(f"{name} ms={cuda_ms(fn, reps=50):.4f} device_ms="
+                     f"{dms:.4f} device_ops={dops:.1f}")
+    print(f"path forms C={C} V={V} T={keys.numel()}: " + "; ".join(parts),
+          flush=True)
+    for name, fn in calls.items():
+        kernel_times(fn, f"{name} at C={C}")
 
 
 def join_in_input_order(bind, valid, probe, keys, payload, capacity):
@@ -637,18 +827,8 @@ def kernel_phase(store) -> Dict[str, dict]:
                              dtype=torch.int32).to(dev)
 
     # the store's largest property window: real sorted keys + payload
-    windows = [store.prop_window(p) for p in range(store.csr_offs.shape[1] - 1)]
-    prop = int(np.argmax(windows))
-    T = windows[prop]
-    j = int(np.argmax(store.prop_dev_rows[:, prop]))
-    start, stop = int(store.csr_offs[j, prop]), int(store.csr_offs[j, prop + 1])
-    live = torch.arange(T, device=dev) < stop - start
-    keys = torch.where(live, store.csr_sub_s[j, start:start + T],
-                       INT32_SENTINEL).contiguous()
-    payload = torch.where(live, store.csr_sub_o[j, start:start + T],
-                          -1).contiguous()
-    objs = torch.where(live, store.csr_obj_o[j, start:start + T],
-                       INT32_SENTINEL).contiguous()
+    keys, payload, objs, n_live, prop, j, start = largest_window(store)
+    T, stop = keys.numel(), start + n_live
     kmin, kmax = int(keys[0]), int(keys[stop - start - 1])
     print(f"kernel shapes: largest window T={T} (property {prop}, "
           f"site {j}, {stop - start} live rows)", flush=True)
@@ -704,21 +884,13 @@ def kernel_phase(store) -> Dict[str, dict]:
                 ref.pair_semijoin_ref(q_s, q_o, ts_, to_),
                 f"pair_semijoin C={C} T={ts_.numel()}"))
         # dedup_rows and fused_join on gathered binding tables
-        for style in ("dup_heavy", "random", "all_sentinel", "distinct"):
-            if style == "dup_heavy":
-                bind = ints(0, 3, C, V)
-            elif style == "distinct":
-                bind = torch.arange(C * V, dtype=torch.int32,
-                                    device=dev).reshape(C, V)
-            else:
-                bind = ints(kmin, kmax + 1, C, V)
-            valid = (ints(0, 10, C) < 7) if style != "all_sentinel" \
-                else torch.zeros(C, dtype=torch.bool, device=dev)
-            if style != "distinct":
-                bind = torch.where(valid[:, None], bind, -1)
-            rec("dedup_rows", _max_err(
-                ops.dedup_rows(bind, valid), ref.dedup_rows_ref(bind, valid),
-                f"dedup_rows C={C} V={V} {style}"))
+        collisions = {}
+        for style in TABLE_STYLES:
+            bind, valid = binding_table(style, cap, V, ints, gen, dev, kmin,
+                                        kmax + 1)
+            rec("dedup_rows", check_dedup(bind, valid,
+                                          f"C={C} V={V} {style}"))
+            collisions[style] = hash_collisions(bind, valid)
             pb = bind[:, 0].contiguous()
             for k, p_ in ((keys, payload), (sentinel_keys, payload)):
                 got = ops.fused_join(bind, valid, pb, k, p_, cap)
@@ -728,6 +900,14 @@ def kernel_phase(store) -> Dict[str, dict]:
                 if int(got[3]) == 0:
                     rec("fused_join", _max_err(_sorted_rows(*got[:3]),
                                                _sorted_rows(*want[:3]), what))
+        print(f"dedup checks C={C} V={V}: dedup_rows and dedup_rows_masked "
+              f"(mask and table) exact in {len(collisions)} styles; pairs "
+              f"of distinct valid rows with equal 32-bit row hashes: "
+              + ", ".join(f"{k} {v}" for k, v in collisions.items()),
+              flush=True)
+        for style in ("gathered", "packed"):
+            dedup_modes(*binding_table(style, cap, V, ints, gen, dev, kmin,
+                                       kmax + 1), f"C={C} V={V} {style}")
     # overflow at capacity 1 / 4 / 16 on a duplicate-heavy table with
     # dense key collisions: the overflow counts agree
     bind = ints(0, 3, 512, 2)
@@ -756,7 +936,7 @@ def kernel_phase(store) -> Dict[str, dict]:
     rec("fused_join", _max_err(got[3], ref.fused_join_ref(
         bind, valid, bind[:, 0].contiguous(), wkeys, wpay, 16)[3], "wrap"))
     torch.cuda.synchronize()
-    join_modes(keys, stop - start, ints)
+    join_modes(keys, stop - start, ints, rec)
     # the sites entry points on the path's own tables: a window on each
     # site in the subject-sorted CSR arrays
     win = largest_windows(store)
@@ -765,6 +945,7 @@ def kernel_phase(store) -> Dict[str, dict]:
     sites_phase(store.csr_sub_s, store.csr_sub_o, win, widths, ints, rec)
     sites_times(store.csr_sub_s, store.csr_sub_o, win, ints)
     one_site_times(store, ints)
+    path_form_times(store, masked=True)
 
     # times at the main path's top tested shape: 4 sites x 2^18 rows
     cap = 1 << 18
@@ -808,9 +989,10 @@ def kernel_phase(store) -> Dict[str, dict]:
                      lambda: ref.semijoin_mask_ref(probe, keys),
                      lambda: torch.isin(probe, keys),
                      (C + T) * 4 + C, C * lg),
-        "dedup_rows": (lambda: ops.dedup_rows(bind, valid),
-                       lambda: ref.dedup_rows_ref(bind, valid), None,
-                       C * V * 4 + 2 * C, C * 6 * V),
+        # the path's form: the mask and the masked table
+        "dedup_rows": (lambda: ops.dedup_rows_masked(bind, valid),
+                       lambda: ref.dedup_rows_masked_ref(bind, valid), None,
+                       C * V * 4 * 2 + 2 * C, C * 6 * V),
         # one call for the SITES windows; bytes: the table and its
         # flags and probes, each window's stored keys (its pads are
         # virtual), the payload of at most capacity rows a site, and
@@ -913,7 +1095,7 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     t0 = time.perf_counter()
     with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
                              pair_semijoin_runs=ref.pair_semijoin_runs_ref,
-                             dedup_rows=ref.dedup_rows_ref,
+                             dedup_rows_masked=ref.dedup_rows_masked_ref,
                              fused_join_sites=ref.fused_join_sites_ref):
         plain_results = [plain.execute(q) for q in queries]
     t_plain = time.perf_counter() - t0

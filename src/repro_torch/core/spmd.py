@@ -47,8 +47,8 @@ import torch
 from ..constants import INT32_SENTINEL
 from ..device import resolve_device
 from ..kernels import ref as kref
-from ..kernels.ops import (compact_rows, dedup_rows, fused_join_sites,
-                           join_range, pair_semijoin_runs)
+from ..kernels.ops import (compact_rows, dedup_rows_masked,
+                           fused_join_sites, join_range, pair_semijoin_runs)
 from .engine import EngineBase
 from .executor import CostModel, ExecStats, QueryResult
 from .graph import RDFGraph
@@ -342,18 +342,17 @@ def _dedup_padded(bind: torch.Tensor, valid: torch.Tensor
     After an all_gather the same partial match can arrive from several
     sites; deduping keeps capacity pressure at the distinct matches.
 
-    On the card the ``dedup_rows`` kernel's keep mask applies in place;
-    on the CPU the lexsort of record returns the rows sorted, as the
-    reference's CPU path does.  Row order is invisible in an exact
-    answer, but it decides which rows survive a truncated
-    (overflowing) capacity tier, and with them the ledger of that
-    tier."""
+    On the card one ``dedup_rows_masked`` call keeps the rows in place
+    and writes the masked table; on the CPU the lexsort of record
+    returns the rows sorted, as the reference's CPU path does.  Row
+    order is invisible in an exact answer, but it decides which rows
+    survive a truncated (overflowing) capacity tier, and with them the
+    ledger of that tier."""
     C, V = bind.shape
     if V == 0 or not bind.is_cuda:
         bs, keep, _order = kref.dedup_padded_ref(bind, valid)
         return bs, keep
-    keep = dedup_rows(bind, valid)
-    return torch.where(keep[:, None], bind, -1), keep
+    return dedup_rows_masked(bind, valid)
 
 
 def _compress_rows(bind: torch.Tensor, keep: torch.Tensor, capacity: int

@@ -48,7 +48,7 @@ SIGNATURES = {
     "fused_join": ("rt_fused_join",
                    (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                     _L, _P, _P, _P, _P, _P)),
-    "semijoin": ("rt_semijoin", (_P, _I, _P, _I, _P, _P)),
+    "semijoin": ("rt_semijoin", (_P, _I, _P, _I, _P, _I, _P, _P)),
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,

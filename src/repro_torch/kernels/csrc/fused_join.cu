@@ -8,10 +8,11 @@
 // pass on the TPU, called there once per site.  The match loop's gather
 // step joins the SAME gathered table against every site's window, so
 // here one call serves all m sites (m = 1 is ops.fused_join):
-//   0. one memset presets the hash slots, the tile tickets and the
-//      scan's tile status words (all to ones);
+//   0. one memset presets the hash slots, the tile tickets, the scan's
+//      tile status words and the rows' alive bytes (all to ones);
 //   1. the parallel hash insert of dedup_rows.cu, once for all sites
-//      (common.cuh);
+//      (dedup.cuh: 64-bit slots of hash and index; the insert marks
+//      every duplicate, so a row survives iff valid && alive);
 //   2. scan, grid.y = site: each tile of 1024 rows (claimed in order
 //      through a per-site atomic ticket) probes its surviving rows
 //      against the site's window (one lower-bound search and a gallop to
@@ -38,8 +39,9 @@
 // kernel's: survivors in input order, each survivor's matches in key
 // order (the reference's composition sorts rows during its dedup; row
 // multiset and overflow count equal).
-// Bound: memory and latency.  The table is read about twice (hash,
-// compare) once per call instead of once per site; each survivor costs
+// Bound: memory and latency.  The table is read once to hash (a second
+// row only where two hashes are equal) once per call instead of once
+// per site, the survivors' flags once a site; each survivor costs
 // one dependent search per site (L2-resident windows at the SPMD loop's
 // sizes), the counts and offsets are written and read once, and the
 // outputs written once.  Four device operations a call for all sites,
@@ -47,6 +49,7 @@
 // site.
 #include <climits>
 
+#include "dedup.cuh"
 #include "search.cuh"
 
 namespace {
@@ -100,7 +103,8 @@ __device__ unsigned block_exclusive_scan(unsigned v, unsigned* total) {
 // lo and inclusive end of every row for site blockIdx.y, one tile per
 // block, claimed in order.
 __global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const int* __restrict__ slots, const int* __restrict__ slot_of,
+scan_kernel(const unsigned char* __restrict__ valid,
+            const unsigned char* __restrict__ alive,
             const int* __restrict__ probe, long long pstride, int C,
             const int* __restrict__ keys, rt::Sites sites, int T,
             int* __restrict__ ticket,
@@ -128,7 +132,7 @@ scan_kernel(const int* __restrict__ slots, const int* __restrict__ slot_of,
     const long long i = base + k;
     lo[k] = 0;
     cnt[k] = 0;
-    if (i < C && rt::first_occurrence(slots, slot_of, (int)i)) {
+    if (i < C && rt::dedup_survives(valid, alive, i)) {
       const int x = probe[i * pstride];
       lo[k] = rt::lower_bound(kj, n, x);
       int h = rt::run_end(kj, n, lo[k], x);
@@ -256,8 +260,8 @@ inline long long round4(long long n) { return (n + 3) / 4 * 4; }
 // off[j] + T) of keys / payload, the first live[j] stored, the rest pads
 // (key INT32_SENTINEL, payload -1).  Scratch (int32, scratch_ints of
 // them; kernels/ops.py sizes it the same way): the preset part [status
-// words round4(2 m ntiles) | slots H | tickets round4(m)], then
-// [slot_of C | lo m C | end m C | total m].  Outputs: out_bind (m,
+// words round4(2 m ntiles) | slots 2H | tickets round4(m) | alive bytes
+// round4(ceil(C / 4))], then [lo m C | end m C | total m].  Outputs: out_bind (m,
 // capacity, V), out_col and out_valid (m, capacity), over (m).
 extern "C" int rt_fused_join(const int* bind, const unsigned char* valid,
                              const int* probe, long long pstride, int C, int V,
@@ -273,24 +277,25 @@ extern "C" int rt_fused_join(const int* bind, const unsigned char* valid,
   const int ntiles = C > 0 ? (C + kScanTile - 1) / kScanTile : 1;
   int H = 8;
   while (H < 2 * C) H *= 2;
-  const long long preset = round4(2LL * m * ntiles) + H + round4(m);
-  if (preset + C + 2LL * m * C + m > scratch_ints)
+  const long long preset =
+      round4(2LL * m * ntiles) + 2LL * H + round4(m) + round4((C + 3) / 4);
+  if (preset + 2LL * m * C + m > scratch_ints)
     return (int)cudaErrorInvalidValue;
   auto* status = reinterpret_cast<unsigned long long*>(scratch);
-  int* slots = scratch + round4(2LL * m * ntiles);
-  int* ticket = slots + H;
-  int* slot_of = scratch + preset;
-  int* lo = slot_of + C;
+  auto* slots = reinterpret_cast<unsigned long long*>(
+      scratch + round4(2LL * m * ntiles));
+  int* ticket = reinterpret_cast<int*>(slots + H);
+  auto* alive = reinterpret_cast<unsigned char*>(ticket + round4(m));
+  int* lo = scratch + preset;
   int* end = lo + (size_t)m * C;
   int* total = end + (size_t)m * C;
   cudaError_t err = cudaMemsetAsync(scratch, 0xFF, preset * sizeof(int),
                                     stream);
   if (err != cudaSuccess) return (int)err;
   if (C > 0)
-    rt::dedup_insert_kernel<<<rt::grid_for(C), rt::kThreads, 0, stream>>>(
-        bind, valid, C, V, slots, H, slot_of);
+    rt::launch_dedup_insert(bind, valid, C, V, slots, H, alive, stream);
   scan_kernel<<<dim3(ntiles, m), kScanThreads, 0, stream>>>(
-      slots, slot_of, probe, pstride, C, keys, sites, T, ticket, status,
+      valid, alive, probe, pstride, C, keys, sites, T, ticket, status,
       ntiles, capacity, lo, end, total, over);
   if (capacity > 0)
     expand_kernel<<<dim3((capacity + kExpTile - 1) / kExpTile, m),

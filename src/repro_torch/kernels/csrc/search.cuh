@@ -1,6 +1,6 @@
 // Searches of an ascending int32 key column shared by join_count.cu,
-// fused_join.cu and pair_semijoin.cu, and the per-site table windows
-// the join kernels of the match loop read.
+// fused_join.cu, pair_semijoin.cu and semijoin.cu, and the per-site
+// table windows the join kernels of the match loop read.
 //
 // Staged search: every 2^shift-th key (at most kMaxSamples) is copied
 // into shared memory first.  The first sample >= x brackets lo in a
@@ -115,6 +115,26 @@ __device__ __forceinline__ int staged_lower_bound(const int* __restrict__ keys,
     return window_lower_bound(keys, ((js - 1) << shift) + 1, js << shift, x,
                               samples[js - 1], samples[js]);
   return 0;  // x <= keys[0] (or the column is empty)
+}
+
+// x occurs in keys[0, T), with the samples of staged_lower_bound: lo
+// and one compare (a sample equal to x answers with no load at all).
+__device__ __forceinline__ bool staged_contains(const int* __restrict__ keys,
+                                                int T, int shift,
+                                                const int* samples, int ns,
+                                                int x) {
+  const int js = lower_bound(samples, ns, x);
+  if (js < ns && samples[js] == x) return true;
+  if (js == 0) return false;  // x < keys[0] (or the column is empty)
+  int lo;  // as staged_lower_bound, from the same js
+  if (js == ns) {
+    const int base = ((js - 1) << shift) + 1;
+    lo = base + lower_bound(keys + base, T - base, x);
+  } else {
+    lo = window_lower_bound(keys, ((js - 1) << shift) + 1, js << shift, x,
+                            samples[js - 1], samples[js]);
+  }
+  return lo < T && keys[lo] == x;
 }
 
 // End of x's run from its lo, staged: gallop lo+1, lo+2, lo+4: a short

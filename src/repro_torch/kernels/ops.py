@@ -183,19 +183,46 @@ def join_count(probe: torch.Tensor, keys_sorted: torch.Tensor
     return _join_search(probe, keys_sorted, False)[1]
 
 
+#: semijoin calls with fewer queries search the table directly; larger
+#: ones first stage every 2^k-th key in shared memory (``csrc/semijoin.cu``,
+#: the staged search of ``join_count``).  Below it the sample gather's
+#: launch and the persistent grid cost more than the L2 sectors the
+#: staged search saves.  Chosen from the card's device times of both
+#: modes on the store's largest window at 4 x 4096 to 4 x 2^18 queries,
+#: which ``chip_smoke.py``'s ``semijoin modes`` lines print (PERF.md).
+SEMI_STAGE_MIN_PROBES = 1 << 17
+
+
+def _semijoin_launch(queries: torch.Tensor, table_sorted: torch.Tensor,
+                     stage_min: int = SEMI_STAGE_MIN_PROBES) -> torch.Tensor:
+    """The membership mask on the card: one ``semijoin`` call
+    (``stage_min`` other than the threshold is for measuring the two
+    modes, as ``chip_smoke.py`` does)."""
+    queries = _i32("semijoin", queries)
+    table = _i32("semijoin", table_sorted)
+    n = queries.numel()
+    out = torch.empty(queries.shape, dtype=torch.bool, device=queries.device)
+    samples = torch.empty(JOIN_SAMPLES, dtype=_I32, device=queries.device) \
+        if n >= stage_min else None
+    _launch("semijoin", queries, n, table, table.numel(), out, stage_min,
+            samples)
+    return out
+
+
 def semijoin(queries: torch.Tensor, table_sorted: torch.Tensor
              ) -> torch.Tensor:
     """mask[i] = ``queries[i]`` occurs in the ascending int32 column
-    ``table_sorted``; empty sides give an all-False mask."""
+    ``table_sorted``; empty sides give an all-False mask.
+
+    On the card it replaces the TPU's ``semijoin.py::_semijoin_kernel``
+    with ``csrc/semijoin.cu``, bound by the L2 sectors of its dependent
+    loads: one search a query, staged as ``join_count``'s from
+    ``SEMI_STAGE_MIN_PROBES`` queries."""
     _vectors("semijoin", queries)
     _vectors("semijoin", table_sorted)
     if not _on_card("semijoin", queries, table_sorted):
         return ref.semijoin_mask_ref(queries, table_sorted)
-    queries = _i32("semijoin", queries)
-    table = _i32("semijoin", table_sorted)
-    out = torch.empty(queries.shape, dtype=torch.bool, device=queries.device)
-    _launch("semijoin", queries, queries.numel(), table, table.numel(), out)
-    return out
+    return _semijoin_launch(queries, table_sorted)
 
 
 #: most sites one launch of a match-loop join kernel serves
@@ -336,24 +363,55 @@ def pair_semijoin_runs(q_s: torch.Tensor, q_o: torch.Tensor,
     return out[0] if q_s.dim() == 1 and t_s.dim() == 1 else out
 
 
-def dedup_rows(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """First-occurrence keep mask over the valid rows of a padded (C, V)
-    int32 binding table: ``keep[i]`` iff ``valid[i]`` and no earlier
-    valid row equals row ``i``.  Rows stay in place."""
-    _table("dedup_rows", bind, valid)
-    if not _on_card("dedup_rows", bind, valid):
-        return ref.dedup_rows_ref(bind, valid)
+def _dedup_scratch_bytes(C: int) -> int:
+    """Bytes of one ``rt_dedup_rows`` call's scratch: ``_hash_size(C)``
+    64-bit slots, then C alive bytes."""
+    return 8 * _hash_size(C) + C
+
+
+def _dedup_launch(bind: torch.Tensor, valid: torch.Tensor, masked: bool
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(masked table or None, keep) on the card: one ``dedup_rows``
+    call, three device operations (memset, insert, keep pass)."""
     C, V = bind.shape
     if V == 0:
         raise ValueError("dedup_rows: the kernel needs at least one column")
     bind, valid = _i32("dedup_rows", bind), _flags("dedup_rows", valid)
-    H = _hash_size(C)
     dev = bind.device
-    slots = torch.empty(H, dtype=_I32, device=dev)
-    slot_of = torch.empty(C, dtype=_I32, device=dev)
+    scratch = torch.empty(_dedup_scratch_bytes(C), dtype=torch.uint8,
+                          device=dev)
     keep = torch.empty(C, dtype=torch.bool, device=dev)
-    _launch("dedup_rows", bind, valid, C, V, slots, H, slot_of, keep)
-    return keep
+    out = torch.empty_like(bind) if masked else None
+    _launch("dedup_rows", bind, valid, C, V, scratch, _hash_size(C), keep,
+            out)
+    return out, keep
+
+
+def dedup_rows(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """First-occurrence keep mask over the valid rows of a padded (C, V)
+    int32 binding table: ``keep[i]`` iff ``valid[i]`` and no earlier
+    valid row equals row ``i``.  Rows stay in place.
+
+    On the card it replaces the TPU's ``semijoin.py::_dedup_kernel``
+    with ``csrc/dedup_rows.cu``, bound by memory: a parallel insert
+    into 64-bit slots of (row hash, row index) that marks every
+    duplicate as it goes, then one streaming pass."""
+    _table("dedup_rows", bind, valid)
+    if not _on_card("dedup_rows", bind, valid):
+        return ref.dedup_rows_ref(bind, valid)
+    return _dedup_launch(bind, valid, False)[1]
+
+
+def dedup_rows_masked(bind: torch.Tensor, valid: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dedup_rows`` with its mask applied, as the match loop uses it:
+    (the table with every row that is not kept set to -1, keep), rows
+    in place.  On the card the kernel's keep pass writes the table too,
+    in the same call."""
+    _table("dedup_rows", bind, valid)
+    if not _on_card("dedup_rows", bind, valid):
+        return ref.dedup_rows_masked_ref(bind, valid)
+    return _dedup_launch(bind, valid, True)
 
 
 #: rows of one tile of the fused join's scan (``kScanTile``)
@@ -368,8 +426,8 @@ def _fused_join_scratch(C: int, m: int) -> int:
     """int32 scratch of one ``rt_fused_join`` launch for m sites (the
     layout in ``csrc/fused_join.cu``)."""
     ntiles = max(1, -(-C // FUSED_SCAN_TILE))
-    return (_round4(2 * m * ntiles) + _hash_size(C) + _round4(m)
-            + C + 2 * m * C + m)
+    return (_round4(2 * m * ntiles) + 2 * _hash_size(C) + _round4(m)
+            + _round4(-(-C // 4)) + 2 * m * C + m)
 
 
 def fused_join_sites(bind: torch.Tensor, valid: torch.Tensor,
@@ -391,9 +449,10 @@ def fused_join_sites(bind: torch.Tensor, valid: torch.Tensor,
     On the card it replaces the TPU's ``semijoin.py::_fused_join_kernel``
     with ``csrc/fused_join.cu``, bound by memory and search latency:
     four device operations for all m sites (one memset; the hash insert
-    once; a single-pass scan with decoupled look-back over grid.y =
-    site; an expansion by output tile).  Each site's rows keep the input order (survivors in input order,
-    matches in key order); the plain version, a loop over
+    of ``dedup_rows`` once; a single-pass scan with decoupled look-back
+    over grid.y = site; an expansion by output tile).  Each site's rows
+    keep the input order (survivors in input order, matches in key
+    order); the plain version, a loop over
     ``fused_join_ref``, keeps the sorted dedup order: the two agree on
     each site's row multiset and overflow count."""
     _table("fused_join", bind, valid, probe)

@@ -183,6 +183,35 @@ def dedup_rows_ref(bind: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return keep
 
 
+def dedup_rows_masked_ref(bind: torch.Tensor, valid: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the table with every row that ``dedup_rows_ref`` does not keep
+    set to -1, keep), rows in place: the match loop's form of the
+    dedup on the card."""
+    keep = dedup_rows_ref(bind, valid)
+    return torch.where(keep[:, None], bind, -1), keep
+
+
+def row_hash_ref(bind: torch.Tensor) -> torch.Tensor:
+    """The dedup kernel's 32-bit hash of each row of a (C, V) int32
+    table (``csrc/dedup.cuh`` ``row_hash``), as int64 values in [0,
+    2^32).  Products are taken in 16-bit halves, so no int64 product
+    overflows."""
+    mask = 0xFFFFFFFF
+
+    def mul(h, k):
+        return ((h * (k & 0xFFFF)) + (((h * (k >> 16)) & 0xFFFF) << 16)) \
+            & mask
+    h = torch.full((bind.shape[0],), 0x811C9DC5, dtype=torch.int64,
+                   device=bind.device)
+    for v in range(bind.shape[1]):
+        h = mul(h ^ (bind[:, v].to(torch.int64) & mask), 0x9E3779B1)
+        h = h ^ (h >> 15)
+    h = h ^ (h >> 13)
+    h = mul(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
 def expand_from_counts(bind: torch.Tensor, lo: torch.Tensor,
                        cnt: torch.Tensor, payload: torch.Tensor,
                        capacity: int

@@ -145,6 +145,15 @@ def _semijoin_cases():
     cases["duplicates"] = (rng.integers(0, 8, 900).astype(np.int32),
                            np.sort(rng.integers(0, 4, 600).astype(np.int32)))
     cases["all_pad_table"] = (queries, np.full(1000, INT32_MIN, np.int32))
+    # runs of up to 3000 equal keys (a Zipf hub's subject window), alone
+    # and behind INT32_MIN pads; queries on, between and beyond the runs
+    values = np.arange(0, 600, 3, dtype=np.int32)
+    runs = np.minimum(rng.zipf(1.5, values.size), 3000)
+    long_runs = np.repeat(values, runs)
+    queries = rng.integers(-5, 610, 4000).astype(np.int32)
+    cases["long_runs"] = (queries, long_runs)
+    cases["long_runs_min_pads"] = (queries, np.concatenate(
+        [np.full(500, INT32_MIN, np.int32), long_runs]))
     return cases
 
 

@@ -118,6 +118,14 @@ def _bind_case(C, V, style, seed):
     elif style == "all_valid_distinct":
         bind = np.arange(C * V, dtype=np.int32).reshape(C, V)
         valid = np.ones(C, bool)
+    elif style == "gathered":
+        # an all-gather of 4 replicated fragments: one site table of C/4
+        # rows in each block, each block shuffled, about 30% invalid
+        site = rng.integers(0, 40, (C // 4, V)).astype(np.int32)
+        bind = np.concatenate([site[rng.permutation(C // 4)]
+                               for _ in range(4)])
+        valid = rng.random(C) < 0.7
+        bind[~valid] = -1
     else:                                   # random with padding holes
         bind = rng.integers(0, 40, (C, V)).astype(np.int32)
         valid = rng.random(C) < 0.7
@@ -136,16 +144,23 @@ def _first_occurrence_keep(bind, valid):
 
 
 @pytest.mark.parametrize("C,V", [(8, 1), (64, 3), (256, 2), (128, 5),
-                                 (512, 4), (16, 0)])
+                                 (512, 4), (16, 0), (64, 1), (64, 4),
+                                 (64, 6), (1000, 1), (1000, 4), (1000, 6)])
 @pytest.mark.parametrize("style", ["random", "dup_heavy", "all_sentinel",
-                                   "all_valid_distinct"])
+                                   "all_valid_distinct", "gathered"])
 def test_dedup_matches_reference(C, V, style, monkeypatch, no_launches):
     monkeypatch.setenv("REPRO_SPMD_PALLAS", "0")
     bind, valid = _bind_case(C, V, style, seed=C * 31 + V)
     keep = ops.dedup_rows(_t(bind), _t(valid))
-    _eq(keep, jref.dedup_rows_ref(jnp.asarray(bind), jnp.asarray(valid)))
+    want_keep = jref.dedup_rows_ref(jnp.asarray(bind), jnp.asarray(valid))
+    _eq(keep, want_keep)
     if V:
         _eq(keep, _first_occurrence_keep(bind, valid))
+    # the card's path form: the reference's kernel branch of
+    # _dedup_padded (its keep mask, then a where), rows in place
+    got_b, got_k = ops.dedup_rows_masked(_t(bind), _t(valid))
+    _eq(got_k, want_keep)
+    _eq(got_b, jnp.where(want_keep[:, None], jnp.asarray(bind), -1))
     # the sorted form used on the CPU path of the match loop is the
     # reference's _dedup_padded, array for array
     got_b, got_k = tspmd._dedup_padded(_t(bind), _t(valid))
@@ -153,6 +168,32 @@ def test_dedup_matches_reference(C, V, style, monkeypatch, no_launches):
                                          jnp.asarray(valid))
     _eq(got_b, want_b)
     _eq(got_k, want_k)
+
+
+def _row_hash_py(row):
+    """The dedup kernel's row hash (``csrc/dedup.cuh``) in Python ints."""
+    mask = 0xFFFFFFFF
+    h = 0x811C9DC5
+    for x in row:
+        h = ((h ^ (int(x) & mask)) * 0x9E3779B1) & mask
+        h ^= h >> 15
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & mask
+    return h ^ (h >> 16)
+
+
+@pytest.mark.parametrize("V", [1, 4, 6])
+def test_row_hash_ref_is_the_kernels_hash(V):
+    """``ref.row_hash_ref`` (which counts the hash collisions of the
+    card's dedup checks) is the kernel's 32-bit hash, negative ids and
+    the int32 extremes included."""
+    rng = np.random.default_rng(V)
+    bind = rng.integers(INT32_MIN, INT32_MAX, (300, V), dtype=np.int64)
+    bind[:3] = np.array([INT32_MIN, INT32_MAX, -1])[:, None]
+    bind = bind.astype(np.int32)
+    got = ref.row_hash_ref(_t(bind))
+    assert got.dtype == torch.int64
+    _eq(got, [_row_hash_py(r) for r in bind])
 
 
 def _edge_table(T, n_real, key_range, seed):
@@ -258,6 +299,10 @@ def test_wrappers_refuse_other_devices():
         ops.join_count(meta, meta)
     with pytest.raises(ValueError):
         ops.join_count(torch.zeros(4, dtype=torch.int32), meta)
+    with pytest.raises(ValueError):
+        ops.dedup_rows_masked(torch.zeros((4, 2), dtype=torch.int32),
+                              torch.zeros(4, dtype=torch.bool,
+                                          device="meta"))
 
 
 def test_wrappers_refuse_mismatched_shapes():
@@ -272,6 +317,10 @@ def test_wrappers_refuse_mismatched_shapes():
         ops.pair_semijoin(i, i[:4], i, i)
     with pytest.raises(ValueError):
         ops.dedup_rows(b, v[:4])
+    with pytest.raises(ValueError):
+        ops.dedup_rows_masked(b, v[:4])
+    with pytest.raises(ValueError):
+        ops.dedup_rows_masked(i, v)
     with pytest.raises(ValueError):
         ops.fused_join(b, v, i[:4], i, i, 4)
     with pytest.raises(ValueError):
