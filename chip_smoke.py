@@ -51,7 +51,22 @@ Phases, each fatal on any error or mismatch:
    (device busy share, the port's kernels by name); then the same
    queries through ``execute_many`` in batches of 64 on a fresh engine
    (answers equal to ``execute``'s, counters and launches read).
-5. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
+5. front door, on the same plan: a traced ``Session`` answers the
+   served queries directly (warming it on this thread; per query, the
+   ``comm_step`` records' bytes and decision counts equal its ledger and
+   counter deltas); warm passes untraced and traced (the tracing cost);
+   the list twice through ``Session.serve()`` (launch counters reset
+   before and read after ``close``; every outcome completed, no failure,
+   no batch fallback, no breaker open; answers equal the direct and
+   plain ones; serve and query latency p50/p99 from the registry, batch
+   sizes, ``batch_shape_hits``); the span chain and the snapshot
+   against ``REQUIRED_METRICS + REQUIRED_SERVE_METRICS``; an open-loop
+   sweep at 1x / 4x / 16x of the sequential rate (3 s a tier, no
+   failure allowed, sheds printed); a hot ``swap_store`` through the
+   door between two halves of the list (answers unchanged, the swap's
+   seconds and peak device memory); ``python -m repro_torch.serve
+   --smoke``'s ``main`` in-process on the card.
+6. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, rows with no visible key, one layer at 1 x 32768), each held to
    the JAX package's elementwise tolerance and to a row-relative bound,
@@ -64,8 +79,10 @@ Phases, each fatal on any error or mismatch:
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
-6. the kernels as one JSON line (each with the path it launched on and
-   its launches there), the card line, and last the result.
+7. the kernels as one JSON line (each with the path it launched on and
+   its launches there, and ``paths``: launches per path, the join
+   kernels on ``spmd`` and ``serve``), the card line, and last the
+   result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
@@ -1170,6 +1187,277 @@ def serve_many_phase(plan, queries, results, card: str) -> Dict[str, int]:
 
 
 # ----------------------------------------------------------------------
+# Front-door phase
+# ----------------------------------------------------------------------
+
+DOOR_BATCH, DOOR_DELAY_MS = 16, 2.0
+SWEEP = (1.0, 4.0, 16.0)          # multiples of the sequential base rate
+SWEEP_S, SWEEP_QUEUE, SWEEP_DEADLINE_S = 3.0, 128, 5.0
+DECISION_COUNTERS = {"gather": "gather_steps",
+                     "edge_ship": "edge_shipped_steps",
+                     "skip": "skipped_gathers",
+                     "edge_cached": "edge_cache_hits"}
+
+
+def _same_answers(got, want, what: str) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        ra, rb = answer_rows(a.bindings), answer_rows(b.bindings)
+        if ra.shape != rb.shape or not np.array_equal(ra, rb):
+            fail(f"{what}: query {i}: {ra.shape[0]} rows, expected "
+                 f"{rb.shape[0]}")
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} answers for {len(want)} queries")
+
+
+def _hist_delta(h, counts_before):
+    """A histogram of the observations ``h`` took since its bucket
+    counts were ``counts_before`` (its p50/p99 then describe that run
+    alone)."""
+    from repro_torch.obs.metrics import Histogram
+    d = Histogram(h.buckets)
+    d.counts = [a - b for a, b in zip(h.counts, counts_before)]
+    d.count = sum(d.counts)
+    return d
+
+
+def _pcts_ms(h) -> str:
+    return (f"p50={h.percentile(0.5) * 1e3:.2f} ms "
+            f"p99={h.percentile(0.99) * 1e3:.2f} ms (n={h.count})")
+
+
+def _reconcile(roots, sess, before_comm, before_counts, what) -> int:
+    """Trace<->ledger over the ``query`` spans in ``roots`` (root spans
+    or their children): the summed ``comm_step`` bytes and the
+    per-decision record counts against the engine's counter deltas since
+    ``before_*``.  Returns the byte delta, which must be 0."""
+    recs = [r for root in roots for s in root.find("query")
+            for r in s.records if r.get("kind") == "comm_step"]
+    st = sess.stats()
+    delta = sum(r["bytes"] for r in recs) - (st.comm_bytes - before_comm)
+    if delta:
+        fail(f"{what}: trace and ledger differ by {delta} bytes")
+    for dec, counter in DECISION_COUNTERS.items():
+        n = sum(1 for r in recs if r["decision"] == dec)
+        if n != st.extra[counter] - before_counts[counter]:
+            fail(f"{what}: {n} {dec} records, {counter} moved by "
+                 f"{st.extra[counter] - before_counts[counter]}")
+    return delta
+
+
+def _settle(futs, timeout: float = 600.0) -> None:
+    """Wait for every future; its outcome is read afterwards."""
+    for f in futs:
+        try:
+            f.result(timeout=timeout)
+        except Exception:       # judged by _door_failures
+            pass
+
+
+def _door_failures(door, futs, what: str) -> None:
+    """Fail unless every future completed, nothing failed, no batch fell
+    back and the breaker never opened: a front door turns errors into
+    quiet outcomes."""
+    bad = [f.outcome for f in futs if f.outcome != "completed"]
+    st = door.stats()
+    if bad or st["failed"] or st["batch_fallbacks"] or st["breaker_opens"]:
+        errors = []
+        for f in futs:
+            if f.outcome == "failed":
+                try:
+                    f.result(0)
+                except Exception as exc:          # the engine's error
+                    errors.append(repr(exc))
+        fail(f"{what}: outcomes {sorted(set(bad))}, failed={st['failed']}, "
+             f"batch_fallbacks={st['batch_fallbacks']}, breaker_opens="
+             f"{st['breaker_opens']}; first errors {errors[:3]}")
+
+
+def door_phase(plan, queries, results, session, card: str,
+               dev: str = "cuda") -> Dict[str, int]:
+    """The serving front door on the plan of ``spmd_phase``: direct
+    warm-up with tracing on, the served queries (twice) through
+    ``Session.serve()``, trace<->ledger, the span chain and the metrics
+    snapshot, the tracing cost against ``session`` (untraced, warm), a
+    capacity sweep, a hot swap through the door, and the serve CLI.
+    Returns the launches of the served pass."""
+    from repro_torch.core import Session
+    from repro_torch.kernels import ops
+    from repro_torch.obs.export import (REQUIRED_METRICS,
+                                        REQUIRED_SERVE_METRICS, snapshot,
+                                        validate_snapshot)
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import FrontDoor, FrontDoorConfig, measure_capacity
+    from repro_torch.serve.__main__ import main as serve_main
+
+    registry = MetricsRegistry()
+    tracer = Tracer(enabled=True, capacity=4096)
+    sess = Session(plan, backend="spmd", device=dev,
+                   spmd_max_capacity=MAX_CAPACITY, tracer=tracer,
+                   metrics_registry=registry)
+    eng = sess.engine
+
+    # 1. direct warm-up, traced: each query's records against its ledger
+    t0 = time.perf_counter()
+    direct, worst = [], 0
+    for q in queries:
+        before = sess.stats()
+        direct.append(sess.execute(q))
+        worst = max(worst, abs(_reconcile(
+            tracer.store.spans()[-1:], sess, before.comm_bytes,
+            before.extra, "traced direct pass")))
+    t_cold = time.perf_counter() - t0
+    _same_answers(direct, results, "traced direct pass")
+    st = sess.stats()
+    traced = sum(r["bytes"] for root in tracer.store.spans()
+                 for r in root.records if r.get("kind") == "comm_step")
+    if traced != st.comm_bytes:
+        fail(f"trace: {traced} bytes traced, {st.comm_bytes} ledgered")
+    print(f"trace<->ledger on the card: {len(queries)} queries, delta 0 "
+          f"per query (largest {worst}) and in all ({traced} traced = "
+          f"{st.comm_bytes} ledgered bytes), decision records equal the "
+          f"counter deltas; cold traced pass {t_cold:.2f} s", flush=True)
+
+    # tracing cost: warm passes, untraced (the serve's session) and
+    # traced, alternated
+    secs = {"untraced": [], "traced": []}
+    for _ in range(3):
+        for name, s in (("untraced", session), ("traced", sess)):
+            secs[name].append(host_s(lambda: [s.execute(q)
+                                              for q in queries]))
+    print(f"tracing cost ({card}): warm pass of {len(queries)} queries "
+          f"untraced {secs['untraced']} s, traced {secs['traced']} s",
+          flush=True)
+    base_qps = len(queries) / min(secs["traced"])
+
+    # 2. served parity: the list twice, so that shapes coalesce
+    served_list = list(queries) * 2
+    lat_q = registry.histogram("repro_query_latency_seconds",
+                               backend="spmd")
+    q_before = list(lat_q.counts)
+    before = sess.stats()
+    n_roots = tracer.store.finished_total
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with sess.serve(max_batch=DOOR_BATCH, max_delay_ms=DOOR_DELAY_MS) as door:
+        futs = [door.submit(q, deadline_s=600.0) for q in served_list]
+        _settle(futs)
+    wall = time.perf_counter() - t0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)           # read after close(drain=True)
+    _door_failures(door, futs, "served pass")
+    served = [f.result(0) for f in futs]
+    _same_answers(served, results * 2, "served pass")
+    roots = tracer.store.spans()[-(tracer.store.finished_total - n_roots):]
+    batch_roots = [s for s in roots if s.name == "serve_batch"]
+    sizes: Dict[int, int] = {}
+    for s in batch_roots:
+        sizes[s.attrs["batch"]] = sizes.get(s.attrs["batch"], 0) + 1
+    hits = sess.stats().extra["batch_shape_hits"] \
+        - before.extra["batch_shape_hits"]
+    lat_s = registry.histogram("repro_serve_latency_seconds",
+                               backend="serve")
+    print(f"front door ({card}): {len(served_list)} requests in "
+          f"{wall:.2f} s, served qps={len(served_list) / wall:.3f}; "
+          f"serve latency {_pcts_ms(lat_s)}; query latency "
+          f"{_pcts_ms(_hist_delta(lat_q, q_before))}; batches="
+          f"{int(door.stats()['batches'])}, batch sizes "
+          f"{dict(sorted(sizes.items()))}, batch_shape_hits={int(hits)}, "
+          f"failed={int(door.stats()['failed'])}, batch_fallbacks="
+          f"{int(door.stats()['batch_fallbacks'])}", flush=True)
+    print(f"launches on the front-door serve: {launches}", flush=True)
+    print(f"front door: {len(served_list)} answer sets equal the direct "
+          f"and the plain versions'", flush=True)
+
+    # 3./4. the served pass reconciles too; span chain and snapshot
+    _reconcile(batch_roots, sess, before.comm_bytes, before.extra,
+               "served pass")
+    if not batch_roots or not all(
+            s.find("query") and any(r.get("kind") == "admission"
+                                    for r in s.records)
+            for s in batch_roots):
+        fail("span chain: a serve_batch root lacks its query span or its "
+             "admission records")
+    required = tuple(REQUIRED_METRICS) + tuple(REQUIRED_SERVE_METRICS)
+    doc = snapshot(registry, tracer=tracer)
+    validate_snapshot(doc, required)
+    names = {e["name"] for sec in ("counters", "gauges", "histograms")
+             for e in doc[sec]}
+    print(f"span chain: {len(batch_roots)} serve_batch roots, each with a "
+          f"query span and admission records; snapshot validated "
+          f"({len(required)} required names, {len(names)} names)",
+          flush=True)
+
+    # 5. capacity sweep at multiples of the sequential base rate
+    reports = measure_capacity(
+        lambda: FrontDoor(sess, FrontDoorConfig(
+            max_queue=SWEEP_QUEUE, max_batch=DOOR_BATCH,
+            max_delay_ms=DOOR_DELAY_MS)),
+        queries, base_qps, multipliers=SWEEP, duration_s=SWEEP_S, seed=7,
+        deadline_s=SWEEP_DEADLINE_S)
+    for rep in reports:
+        print(f"load {rep.offered_multiplier:g}x ({card}): offered "
+              f"{rep.offered_qps:.3f} qps, achieved {rep.achieved_qps:.3f} "
+              f"qps, p50={rep.p50_latency_s * 1e3:.2f} ms "
+              f"p99={rep.p99_latency_s * 1e3:.2f} ms, submitted "
+              f"{rep.submitted}, shed_rate={rep.shed_rate:.4f} "
+              f"(queue_full={rep.shed_queue_full}, breaker="
+              f"{rep.shed_breaker}, deadline={rep.deadline_expired}), "
+              f"failed={rep.failed}", flush=True)
+        if rep.failed:
+            fail(f"load {rep.offered_multiplier:g}x: {rep.failed} failed "
+                 f"requests")
+
+    # 6. hot swap through the door, between two halves of the list
+    sids = plan.site_edge_ids()
+    half = len(queries) // 2
+    swap = {}
+
+    def do_swap():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            swap["before"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        eng.swap_store(sids[1:] + sids[:1],
+                       replicated_props=set(plan.replicated_props))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            swap["peak"] = torch.cuda.max_memory_allocated()
+            swap["after"] = torch.cuda.memory_allocated()
+        swap["s"] = time.perf_counter() - t
+
+    with sess.serve(max_batch=DOOR_BATCH, max_delay_ms=DOOR_DELAY_MS) as door:
+        futs = [door.submit(q, deadline_s=600.0) for q in queries[:half]]
+        _settle(futs)
+        door.request_swap(do_swap)
+        futs += [door.submit(q, deadline_s=600.0) for q in queries[half:]]
+        _settle(futs)
+    _door_failures(door, futs, "swap pass")
+    _same_answers([f.result(0) for f in futs], results, "swap pass")
+    gen, swaps = eng.store_generation, int(sess.stats().extra["store_swaps"])
+    if (gen, door.swaps_applied, swaps) != (1, 1, 1):
+        fail(f"swap: store_generation={gen}, swaps_applied="
+             f"{door.swaps_applied}, store_swaps={swaps}")
+    print(f"hot swap ({card}): {swap['s']:.2f} s, store_generation={gen}, "
+          f"swaps_applied={door.swaps_applied}, store_swaps={swaps}; device "
+          f"memory before {swap.get('before')} bytes, peak across the swap "
+          f"{swap.get('peak')}, after {swap.get('after')}; "
+          f"{len(queries)} answer sets equal before and after", flush=True)
+
+    # 7. the serve CLI in-process, at its default size
+    t0 = time.perf_counter()
+    rc = serve_main(["--smoke", "--device", dev, "--out",
+                     str(ROOT / "build" / "serve_smoke.json")])
+    if rc != 0:
+        fail(f"python -m repro_torch.serve --smoke returned {rc}")
+    print(f"python -m repro_torch.serve --smoke: 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ----------------------------------------------------------------------
 # LM phase
 # ----------------------------------------------------------------------
 
@@ -1565,10 +1853,11 @@ def rdf_setup():
 
 
 def spmd_phase(card: str) -> Dict[str, dict]:
-    """Phases 2 to 4: the WatDiv plan, the join kernels, the served
-    queries (``execute``, its profile, then ``execute_many``).  Returns
-    the records of the kernels checked against the store, with their
-    launches on the ``execute`` serve."""
+    """Phases 2 to 5: the WatDiv plan, the join kernels, the served
+    queries (``execute``, its profile, then ``execute_many``), then the
+    front door.  Returns the records of the kernels checked against the
+    store, with their launches on the ``execute`` serve (``spmd``) and
+    on the front door's served pass (``serve``)."""
     from repro_torch.core import Session
     graph, plan, session = rdf_setup()
     kernels = kernel_phase(session.engine.store)
@@ -1588,8 +1877,15 @@ def spmd_phase(card: str) -> Dict[str, dict]:
                if path == "spmd" and many[k] <= 0]
     if missing:
         fail(f"kernels never launched on the execute_many serve: {missing}")
+    served = door_phase(plan, queries, results, session, card)
+    missing = [k for k, (_s, _t, path) in KERNELS.items()
+               if path == "spmd" and served[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the front-door serve: {missing}")
     for k in kernels:
         kernels[k]["launches"] = launches[k]
+        if KERNELS[k][2] == "spmd":
+            kernels[k]["paths"] = {"spmd": launches[k], "serve": served[k]}
     return kernels
 
 
@@ -1656,12 +1952,15 @@ def main() -> None:
     kernels = spmd_phase(card)
     torch.cuda.empty_cache()
     kernels["flash_attention"] = lm_phase(card)
+    kernels["flash_attention"]["paths"] = {
+        "lm": kernels["flash_attention"]["launches"]}
 
     rows = []
     for name, (source, replaces, path) in KERNELS.items():
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "path": path or "none",
+                     "paths": k.get("paths", {}),
                      "launches": k["launches"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

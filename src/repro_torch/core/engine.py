@@ -1,11 +1,14 @@
 """The ``Engine`` surface shared by the execution backends: one query,
 a stream of queries, cumulative counters and post-execute observers.
 
-``EngineBase`` keeps the counters as plain numbers under the same names
-the reference engines use; the metrics registry and span tracing are
-ported in a later slice.  Concrete engines call ``_init_engine_base()``
-in ``__init__`` and funnel every finished query through
-``_finish(query, result)``.
+``EngineBase`` keeps the counters under the names the reference
+engines use and publishes them through the telemetry layer
+(``repro_torch.obs``): every counter is mirrored into the metrics
+registry as ``repro_<name>_total``, each query observes the latency
+histogram and refreshes the ``_stats_extra`` gauges, and ``execute``
+wraps each query in a root ``"query"`` span when tracing is on.
+Concrete engines call ``_init_engine_base()`` in ``__init__`` and
+funnel every finished query through ``_finish(query, result)``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ import dataclasses
 import warnings
 from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Sequence)
 
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
+
 if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..obs.metrics import MetricsRegistry
+    from ..obs.trace import Tracer
     from .executor import QueryResult
     from .query import QueryGraph
 
@@ -42,8 +50,18 @@ class EngineStats:
 
 
 class EngineBase:
-    """Shared counter/hook plumbing and a batched ``execute_many``
-    (sequential unless the backend overrides ``_execute_batch``)."""
+    """Shared counter/hook/telemetry plumbing and a batched
+    ``execute_many`` (sequential unless the backend overrides
+    ``_execute_batch``).
+
+    ``_init_engine_base`` binds the process-default tracer and metrics
+    registry (``repro_torch.obs``); both are swappable afterwards via
+    ``set_tracer`` / ``set_metrics_registry`` (``Session`` exposes them
+    as constructor knobs).
+    """
+
+    #: short backend label stamped on spans and metric series
+    trace_name: str = "engine"
 
     def _init_engine_base(self) -> None:
         self.post_execute_hooks: List[Callable[[Any, Any], None]] = []
@@ -52,31 +70,88 @@ class EngineBase:
         self._n_comm_bytes = 0
         self._t_response = 0.0
         self._counters: Dict[str, float] = {}
+        self.tracer: "Tracer" = _obs_trace.get_tracer()
+        self.metrics: "MetricsRegistry" = _obs_metrics.get_registry()
+        self._metric_cache: Dict[str, Any] = {}
         self._hook_warned = False
         self._bump("hook_errors", 0)
 
+    # -- telemetry wiring ----------------------------------------------
+    def set_tracer(self, tracer: "Tracer") -> None:
+        """Route this engine's spans through ``tracer``."""
+        self.tracer = tracer
+
+    def set_metrics_registry(self, registry: "MetricsRegistry") -> None:
+        """Route this engine's metrics into ``registry``.  Counters
+        pre-registered at construction are re-registered so the new
+        registry exposes them immediately."""
+        self.metrics = registry
+        self._metric_cache = {}
+        for name in self._counters:
+            registry.counter(f"repro_{name}_total",
+                             backend=self.trace_name)
+
+    def _metric(self, kind: str, name: str, **kw):
+        """Per-engine cache over registry lookups (one dict hit on the
+        hot path instead of a labels sort)."""
+        m = self._metric_cache.get(name)
+        if m is None:
+            factory = getattr(self.metrics, kind)
+            m = factory(name, backend=self.trace_name, **kw)
+            self._metric_cache[name] = m
+        return m
+
     def _bump(self, name: str, amount: float = 1.0) -> None:
-        """Accumulate a named backend counter (surfaced in
-        ``stats().extra``).  Bump with ``amount=0`` at construction to
+        """Accumulate a named backend counter; it surfaces in
+        ``stats().extra`` and as the ``repro_<name>_total`` counter of
+        the metrics registry.  Bump with ``amount=0`` at construction to
         pre-register a counter so it is present before it fires."""
         self._counters[name] = self._counters.get(name, 0.0) + amount
+        self._metric("counter", f"repro_{name}_total").inc(amount)
 
     def execute(self, query: "QueryGraph") -> "QueryResult":
-        """Answer one query exactly (the backend's ``_execute``)."""
-        return self._execute(query)
+        """Answer one query exactly (the backend's ``_execute``),
+        wrapped in a root ``"query"`` span when tracing is enabled."""
+        tracer = self.tracer
+        if not tracer.enabled:
+            return self._execute(query)
+        with tracer.span("query", backend=self.trace_name):
+            return self._execute(query)
 
     def _execute(self, query: "QueryGraph") -> "QueryResult":
         raise NotImplementedError
 
     def _finish(self, query: "QueryGraph", result: "QueryResult"
                 ) -> "QueryResult":
-        """Record counters and run observers; every ``_execute`` ends
-        here.  A raising observer is counted (``hook_errors``) and
-        warned about once, never allowed to abort the query."""
+        """Record counters and metrics, annotate the query span, and run
+        observers; every ``_execute`` ends here.  A raising observer is
+        counted (``hook_errors``) and warned about once, never allowed
+        to abort the query."""
+        st = result.stats
         self._n_queries += 1
         self._n_rows += result.num_rows
-        self._n_comm_bytes += result.stats.comm_bytes
-        self._t_response += result.stats.response_time
+        self._n_comm_bytes += st.comm_bytes
+        self._t_response += st.response_time
+        self._metric("counter", "repro_queries_total").inc()
+        self._metric("counter", "repro_result_rows_total").inc(
+            result.num_rows)
+        self._metric("counter", "repro_comm_bytes_total").inc(st.comm_bytes)
+        self._metric("counter",
+                     "repro_response_time_seconds_total").inc(
+            st.response_time)
+        self._metric("histogram", "repro_query_latency_seconds").observe(
+            st.response_time)
+        for name, val in self._stats_extra().items():
+            g = self._metric_cache.get(f"_g_{name}")
+            if g is None:
+                g = self.metrics.gauge(f"repro_{name}",
+                                       backend=self.trace_name)
+                self._metric_cache[f"_g_{name}"] = g
+            g.set(val)
+        if self.tracer.enabled:
+            self.tracer.annotate(rows=result.num_rows,
+                                 comm_bytes=st.comm_bytes,
+                                 response_time=st.response_time)
         for hook in self.post_execute_hooks:
             try:
                 hook(query, result)

@@ -10,6 +10,8 @@ Typical use::
     plan = build_plan(graph, workload, PartitionConfig(num_sites=4))
     session = Session(plan, backend="spmd")          # on the GPU
     results = session.execute_many(queries)
+    with session.serve(max_batch=16, max_delay_ms=2.0) as door:
+        result = door.submit(query, deadline_s=1.0).result()
 """
 from __future__ import annotations
 
@@ -35,7 +37,10 @@ class Session:
                  spmd_capacity: int = 4096,
                  spmd_max_capacity: Optional[int] = None,
                  spmd_comm_plan: bool = True,
-                 spmd_routing: bool = True):
+                 spmd_routing: bool = True,
+                 trace: bool = False,
+                 tracer=None,
+                 metrics_registry=None):
         """Build the backend engine for ``plan``.
 
         Args:
@@ -54,6 +59,16 @@ class Session:
                 tables before every join step.
             spmd_routing: per-query site routing (default on; inactive
                 without the planner).
+            trace: ``True`` builds a private enabled ``Tracer`` for this
+                session (a root span per query with its ``comm_step``
+                records).
+            tracer: explicit ``obs.trace.Tracer`` to use instead
+                (overrides ``trace``); default is the process tracer
+                (``obs.trace.get_tracer()``, disabled unless
+                ``obs.trace.enable_tracing()`` ran).
+            metrics_registry: explicit ``obs.metrics.MetricsRegistry``
+                for this session's counters, gauges and histograms;
+                default is the process registry.
 
         Raises:
             ValueError: a backend that is not ported.
@@ -67,6 +82,13 @@ class Session:
             device=device, num_devices=spmd_devices, capacity=spmd_capacity,
             cost=cost, max_capacity=spmd_max_capacity,
             comm_plan=spmd_comm_plan, routing=spmd_routing)
+        if tracer is None and trace:
+            from ..obs.trace import Tracer
+            tracer = Tracer(enabled=True)
+        if tracer is not None:
+            self.engine.set_tracer(tracer)
+        if metrics_registry is not None:
+            self.engine.set_metrics_registry(metrics_registry)
 
     @property
     def post_execute_hooks(self) -> List[Callable[[QueryGraph, QueryResult],
@@ -80,6 +102,24 @@ class Session:
         """Logical cluster width the plan was built for."""
         return self.engine.num_sites
 
+    def route_key(self, query: QueryGraph):
+        """The engine's routing token for ``query`` (the route's member
+        sites, or ``None``).  The serving layer folds it into its
+        shape-bucket keys so micro-batches stay route-coherent."""
+        return self.engine.route_key(query)
+
+    @property
+    def tracer(self):
+        """The ``obs.trace.Tracer`` the engine reports to
+        (``tracer.store.spans()`` holds the finished root spans)."""
+        return self.engine.tracer
+
+    @property
+    def metrics(self):
+        """The ``obs.metrics.MetricsRegistry`` the engine publishes its
+        counters, gauges and histograms into."""
+        return self.engine.metrics
+
     def execute(self, query: QueryGraph) -> QueryResult:
         """Answer one query exactly: ``bindings`` (variable -> int32
         column), ``num_rows`` and per-query ``stats``."""
@@ -89,6 +129,36 @@ class Session:
                      batch_size: int = 64) -> List[QueryResult]:
         """Answer a query stream (results in input order)."""
         return self.engine.execute_many(queries, batch_size=batch_size)
+
+    def serve(self, config=None, *, start: bool = False, **kw):
+        """Build a serving front door (``repro_torch.serve.FrontDoor``)
+        over this session's engine: bounded admission, load shedding,
+        per-request deadlines, circuit breaking, and shape-keyed
+        micro-batching.  It runs the engine this session built, on the
+        session's device, and builds none of its own.
+
+        Args:
+            config: a ``repro_torch.serve.FrontDoorConfig``; built from
+                ``**kw`` (``max_queue=...``, ``max_batch=...``, ...)
+                when omitted.
+            start: spawn the dispatcher thread immediately (the door
+                also works as a context manager: ``with session.serve()
+                as door: ...``).
+            **kw: ``FrontDoorConfig`` fields, used only when ``config``
+                is ``None``.
+
+        Returns:
+            A ``FrontDoor`` bound to this session's engine, tracer, and
+            metrics registry.
+        """
+        # lazy import: serve imports core, not the other way round
+        from ..serve.frontdoor import FrontDoor, FrontDoorConfig
+        if config is None:
+            config = FrontDoorConfig(**kw)
+        elif kw:
+            raise ValueError(f"pass either config or field overrides, "
+                             f"not both (got config and {sorted(kw)})")
+        return FrontDoor(self, config, start=start)
 
     def stats(self) -> EngineStats:
         """Cumulative counters, stamped with backend and strategy."""

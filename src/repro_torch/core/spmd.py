@@ -239,6 +239,10 @@ COMM_EDGE = 1         # shipped the step property's edge rows instead
 COMM_SKIP = 2         # shipped nothing (shard-complete property / 1 site)
 COMM_EDGE_CACHED = 3  # reused an earlier step's gathered edge table
 
+#: decision code -> the name used in trace records
+COMM_DECISION_NAMES = {COMM_GATHER: "gather", COMM_EDGE: "edge_ship",
+                       COMM_SKIP: "skip", COMM_EDGE_CACHED: "edge_cached"}
+
 
 def bind_row_bytes(num_cols: int) -> int:
     """Wire bytes of one binding-table row: ``num_cols`` int32 columns
@@ -719,8 +723,13 @@ class SpmdEngine(EngineBase):
     by default; ``False`` restores the naive gather-every-step join and
     whole-axis execution with identical answers).  ``stats().comm_bytes``
     ledgers the data-plane bytes with the reference's formulas; the
-    counters keep the reference's names.
+    counters keep the reference's names.  With tracing on, each query's
+    root span carries one ``comm_step`` record per join step per
+    attempted tier plus the final gather, built from the same vectors
+    and byte formulas as the ledger.
     """
+
+    trace_name = "spmd"
 
     def __init__(self, graph: RDFGraph, site_edge_ids: Sequence[np.ndarray],
                  device: Union[str, torch.device] = "cuda",
@@ -953,23 +962,33 @@ class SpmdEngine(EngineBase):
         route = self._route(norm)
         w = route.width if route is not None else m
         routed = route is not None and route.width < m
+        tr = self.tracer
+        trace_on = tr.enabled
         comm = 0
-        # a reused run shipped nothing for this member: its steps were
-        # ledgered once, for the group's first member
-        if m > 1 and not reused:    # 1 site: no peers, nothing ships
-            if self._seed_decimation(norm):
+        if reused:
+            # the run -- and every collective in it -- happened once, for
+            # the group's first member: this member shipped nothing
+            if trace_on:
+                tr.annotate(devices=m, capacity_tiers=caps,
+                            shape_reused=True, route_width=w,
+                            routed=routed,
+                            comm_planner=bool(self.comm_plan))
+        elif m > 1:             # 1 site: no peers, nothing ever ships
+            decimated = self._seed_decimation(norm)
+            if decimated:
                 self._bump("decimated_seed_queries")
             if routed:
                 self._bump("routed_queries")
-            for dec, srows, n_final in attempts:
+            for ai, (dec, srows, n_final) in enumerate(attempts):
                 for ji, sc in enumerate(spec):
                     d, r = int(dec[ji]), int(srows[ji])
                     row_bytes = bind_row_bytes(step_in_cols[ji])
+                    step_bytes = 0
                     if d == COMM_GATHER:
-                        comm += (w - 1) * r * row_bytes
+                        step_bytes = (w - 1) * r * row_bytes
                         self._bump("gather_steps")
                     elif d == COMM_EDGE:
-                        comm += (w - 1) * sc.edge_bytes
+                        step_bytes = (w - 1) * sc.edge_bytes
                         self._bump("edge_shipped_steps")
                         self._bump("comm_bytes_saved",
                                    (w - 1) * (r * row_bytes
@@ -984,7 +1003,45 @@ class SpmdEngine(EngineBase):
                             self._bump("route_skipped_steps")
                         if sc.prop in self.replicated_props:
                             self._bump("replication_skipped_steps")
-                comm += (w - 1) * n_final * bind_row_bytes(V)
+                    comm += step_bytes
+                    if trace_on:
+                        # same vectors, same byte formulas as the ledger:
+                        # trace and ledger cannot diverge
+                        tr.add_record({
+                            "kind": "comm_step", "attempt": ai,
+                            "capacity": caps[ai], "step": ji + 1,
+                            "prop": sc.prop,
+                            "decision": COMM_DECISION_NAMES[d],
+                            "rows": r, "bytes": step_bytes,
+                            "route_width": w,
+                            "occupancy": (r / (m * caps[ai])
+                                          if d != COMM_SKIP else 0.0)})
+                final_bytes = (w - 1) * n_final * bind_row_bytes(V)
+                comm += final_bytes
+                if trace_on:
+                    tr.add_record({
+                        "kind": "comm_step", "attempt": ai,
+                        "capacity": caps[ai], "step": len(spec) + 1,
+                        "prop": -1, "decision": "final_gather",
+                        "rows": n_final, "bytes": final_bytes,
+                        "route_width": w,
+                        "occupancy": n_final / (m * caps[ai])})
+            if trace_on:
+                tr.annotate(devices=m, capacity_tiers=caps,
+                            overflow_events=len(caps) - 1,
+                            capacity_retries=len(caps) - 1,
+                            seed_decimated=bool(decimated),
+                            route_width=w, routed=routed,
+                            comm_planner=bool(self.comm_plan))
+        elif trace_on:
+            # one site: no peers, no collectives -- the span says so
+            # instead of carrying zero-filled step records
+            tr.annotate(devices=m, capacity_tiers=caps,
+                        overflow_events=len(caps) - 1,
+                        capacity_retries=len(caps) - 1,
+                        seed_decimated=False,
+                        route_width=1, routed=False,
+                        comm_planner=bool(self.comm_plan))
         elapsed = time.perf_counter() - t0
         if routed:
             touched = {j for j in range(self.logical_sites)
@@ -1022,6 +1079,70 @@ class SpmdEngine(EngineBase):
                 self._shared_run_key = None
                 self._shared_run = None
         return out
+
+    @property
+    def store_generation(self) -> int:
+        """Monotonic counter bumped by every ``swap_store`` -- the
+        serving layer's witness that a hot swap happened."""
+        return self._store_gen
+
+    def swap_store(self, site_edge_ids: Sequence[np.ndarray],
+                   replicated_props: Optional[set] = None,
+                   graph: Optional[RDFGraph] = None) -> int:
+        """Replace the folded ``SiteStore`` with one built for a new
+        placement (and optionally a delta-updated graph): the engine
+        object survives a re-partition, so a serving front door keeps
+        the same engine handle across plan versions.
+
+        The new store is built on ``self.device`` *before* any engine
+        state changes, then installed together with the planner caches'
+        invalidation in one host-side step -- the engine is
+        single-threaded, so an execute runs entirely on the old store or
+        entirely on the new one.  Matchers are keyed by store
+        generation; the old generation's are dropped here, since they
+        hold the retired store's tensors and never match again
+        (``compiled_shapes`` keeps counting every one built).
+
+        Returns the new store generation.
+        """
+        graph = graph if graph is not None else self.graph
+        m = self.store.num_sites
+        folded: List[List[np.ndarray]] = [[] for _ in range(m)]
+        for j, eids in enumerate(site_edge_ids):
+            folded[j % m].append(np.asarray(eids, np.int64))
+        store = SiteStore.build(
+            graph, [np.unique(np.concatenate(g)) if g
+                    else np.zeros(0, np.int64) for g in folded],
+            device=self.device)
+        # install: everything planned against the old store's residency
+        # (routes, comm specs, seed decimation, capacity hints) is
+        # invalid for the new placement
+        self.graph = graph
+        self.store = store
+        self.logical_sites = len(site_edge_ids)
+        if replicated_props is not None:
+            self.replicated_props = set(replicated_props)
+        self._routes.clear()
+        self._comm_specs.clear()
+        self._seed_decim.clear()
+        self._cap_hints.clear()
+        self._matchers.clear()
+        self._shared_run = None
+        self._shared_run_key = None
+        self._store_gen += 1
+        self._bump("store_swaps")
+        return self._store_gen
+
+    def route_key(self, query: QueryGraph) -> Optional[Tuple[int, ...]]:
+        """Stable routing token for ``query``: its route's member
+        sites, or ``None`` when routing is inactive (or the query is
+        unroutable).  A pure function of the *normalized* shape, so the
+        serving layer can fold it into its shape-bucket keys without
+        ever splitting a same-shape batch (``repro_torch.serve``)."""
+        if any(e.prop == PROP_VAR for e in query.edges):
+            return None
+        route = self._route(query.normalize())
+        return route.members if route is not None else None
 
     def _stats_extra(self) -> Dict[str, float]:
         # key names follow the reference's catalogue; the join-kernel

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ sys.meta_path.insert(0, Block())
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
+# the serve CLI is imported like any module: importing it runs nothing
+assert "repro_torch.serve.__main__" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -88,6 +91,30 @@ def test_entry_points_default_to_the_card():
         convert.engine_from_arrays(arrays)
     q = QueryGraph.make([(-1, -2, 0)])
     assert SpmdEngine(g, sites, device="cpu").execute(q).num_rows == 2
+
+    # the session and its front door: the door serves the session's
+    # engine and builds none of its own; the serve CLI asks for CUDA
+    from repro_torch.core import PartitionConfig, Session, build_plan
+    from repro_torch.core.workload import Workload
+    from repro_torch.serve.__main__ import main as serve_main
+    plan = build_plan(g, Workload([q]), PartitionConfig(num_sites=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Session(plan)
+    sess = Session(plan, device="cpu")
+    built = []
+    orig_init = SpmdEngine.__init__
+
+    def counting_init(self, *a, **kw):
+        built.append(kw.get("device"))
+        orig_init(self, *a, **kw)
+
+    with mock.patch.object(SpmdEngine, "__init__", counting_init):
+        with sess.serve(max_batch=2) as door:
+            assert door.submit(q).result(timeout=60).num_rows == 2
+    assert built == [] and door.engine is sess
+    assert door.stats()["completed"] == 1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--smoke"])
 
     # the LM substrate: building the model, its cache, loading weights,
     # the forward and the serve loop

@@ -1,7 +1,11 @@
 """Shared pieces of the port's differential tests: the seeded random
-graph, its shape workload and 4-site vertical plan, and the routine
-that serves one plan through the JAX ``SpmdEngine`` and the port's and
-compares everything both report, exactly."""
+graph, its shape workload and 4-site vertical plan, the routine that
+serves one plan through the JAX ``SpmdEngine`` and the port's and
+compares everything both report, exactly, and the runner that puts the
+JAX package's own telemetry and serving unit tests through the port."""
+import importlib
+import inspect
+
 import numpy as np
 import pytest
 
@@ -12,8 +16,11 @@ from repro.core.query import QueryGraph as JQuery
 from repro.core.workload import Workload
 from repro.launch.mesh import make_host_mesh
 from repro_torch import convert
+from repro_torch.core import PartitionConfig as TConfig
 from repro_torch.core import QueryGraph, RDFGraph
+from repro_torch.core import build_plan as t_build_plan
 from repro_torch.core import match_pattern as t_match_pattern
+from repro_torch.core.workload import Workload as TWorkload
 
 
 def port_query(q):
@@ -38,6 +45,16 @@ def rqueries(rgraph):
 def rplan(rgraph, rqueries):
     return build_plan(rgraph, Workload(list(rqueries)),
                       PartitionConfig(kind="vertical", num_sites=4))
+
+
+@pytest.fixture(scope="module")
+def tplan(rgraph, rqueries):
+    """The port's own plan of ``rplan``'s inputs (identical per-site
+    storage: ``tests/test_torch_plan.py``), for the port's ``Session``."""
+    g = RDFGraph(rgraph.s, rgraph.p, rgraph.o, rgraph.num_vertices,
+                 rgraph.num_properties)
+    return t_build_plan(g, TWorkload([port_query(q) for q in rqueries]),
+                        TConfig(kind="vertical", num_sites=4))
 
 
 def differential(plan, queries, mesh_n, capacity, comm_plan=True,
@@ -74,3 +91,45 @@ def differential(plan, queries, mesh_n, capacity, comm_plan=True,
     assert ts.result_rows == js.result_rows
     assert ts.extra == js.extra
     return ts
+
+
+# ----------------------------------------------------------------------
+# The reference's own unit tests, run against either package
+# ----------------------------------------------------------------------
+
+# constants the reference test modules import by name (no __module__)
+_PORT_CONSTANTS = {"REQUIRED_METRICS": "repro.obs.export",
+                   "REQUIRED_SERVE_METRICS": "repro.obs.export",
+                   "SNAPSHOT_SCHEMA": "repro.obs.export"}
+
+
+def reference_unit_tests(module):
+    """Names of the tests of a reference test module that take no
+    fixture but ``tmp_path`` (its unit tests, with fakes only)."""
+    return sorted(
+        name for name, fn in vars(module).items()
+        if name.startswith("test_") and callable(fn)
+        and set(inspect.signature(fn).parameters) <= {"tmp_path"})
+
+
+def run_reference_test(module, name, package, monkeypatch, tmp_path):
+    """Run ``module.<name>`` with every name it imported from the JAX
+    package's ``obs`` / ``serve`` bound to ``package``'s module of the
+    same path (``"repro"`` leaves it as it is, ``"repro_torch"`` swaps
+    in the port), so one scenario checks both implementations."""
+    if package == "repro_torch":
+        swapped = 0
+        for attr, val in list(vars(module).items()):
+            src = _PORT_CONSTANTS.get(attr) or getattr(val, "__module__",
+                                                       None)
+            if isinstance(src, str) and src.startswith(("repro.obs",
+                                                        "repro.serve")):
+                port = importlib.import_module("repro_torch"
+                                               + src[len("repro"):])
+                monkeypatch.setattr(module, attr, getattr(port, attr))
+                swapped += 1
+        assert swapped, f"{module.__name__} imports nothing to swap"
+    fn = getattr(module, name)
+    kw = ({"tmp_path": tmp_path}
+          if "tmp_path" in inspect.signature(fn).parameters else {})
+    fn(**kw)
