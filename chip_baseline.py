@@ -36,7 +36,7 @@ def main() -> None:
     card = smoke.card_line()
     print(f"card: {card}", flush=True)
     build.build_all()
-    graph, _plan, session = smoke.rdf_setup()
+    graph, _design, _plan, session = smoke.rdf_setup()
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     def ints(lo, hi, *shape):

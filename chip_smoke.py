@@ -66,7 +66,19 @@ Phases, each fatal on any error or mismatch:
    door between two halves of the list (answers unchanged, the swap's
    seconds and peak device memory); ``python -m repro_torch.serve
    --smoke``'s ``main`` in-process on the card.
-6. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
+6. strategies, on the same graph and design workload: the horizontal
+   (minterm predicates), SHAPE and WARP plans at full size (seconds
+   split by offline step, WARP's label propagation on its own,
+   fragments, minterm fragments, redundancy, resident rows per site),
+   each served on the card (ledger line, launches; every join kernel
+   must launch) with every answer set equal to the vertical serve's and
+   to the same session on the plain versions; on the horizontal plan
+   the host backends ``local`` and ``baseline`` (numpy on the host, as
+   in the reference) answer the first template queries and the shapes
+   with the spmd serve's answers.  Then the JAX package's seeded ledger
+   benches (``spmd_comm``, ``spmd_replication``, ``spmd_routing``) on
+   the card, held to their properties and to the JAX package's totals.
+7. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, rows with no visible key, one layer at 1 x 32768), each held to
    the JAX package's elementwise tolerance and to a row-relative bound,
@@ -79,16 +91,17 @@ Phases, each fatal on any error or mismatch:
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
-7. the kernels as one JSON line (each with the path it launched on and
+8. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path, the join
-   kernels on ``spmd`` and ``serve``), the card line, and last the
-   result.
+   kernels on ``spmd``, ``serve``, ``horizontal``, ``shape`` and
+   ``warp``), the card line, and last the result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -1458,6 +1471,330 @@ def door_phase(plan, queries, results, session, card: str,
 
 
 # ----------------------------------------------------------------------
+# Strategies phase
+# ----------------------------------------------------------------------
+
+STRATEGY_KINDS = ("horizontal", "shape", "warp")
+JOIN_KERNELS = ("join_count", "pair_semijoin", "dedup_rows", "fused_join")
+HOST_TEMPLATES = 8       # template queries the host backends answer
+# The baseline engine (as the reference's) answers a plan's
+# fragmentation one edge at a time and joins the units in order of
+# size: on the chain, hasGenre and makesReview, which share no
+# variable, come first, a cross product of about 1.6e11 rows at this
+# size.  It answers the other queries.
+BASELINE_SKIPPED = ("chain",)
+
+
+def strategy_plan(graph, design, kind: str, card: str):
+    """``build_plan`` of ``kind`` at the smoke's size, with its seconds
+    (split by offline step where the strategy records them; WARP's label
+    propagation timed on its own), fragments, minterm fragments,
+    redundancy ratio and resident rows per site."""
+    from unittest import mock
+
+    from repro_torch.core import PartitionConfig, baselines, build_plan
+    lp = []
+    propagate = baselines.label_propagation_partition
+
+    def timed_propagation(*a, **kw):
+        t0 = time.perf_counter()
+        out = propagate(*a, **kw)
+        lp.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(baselines, "label_propagation_partition",
+                           timed_propagation):
+        plan = build_plan(graph, design,
+                          PartitionConfig(kind=kind, num_sites=SITES))
+    secs = time.perf_counter() - t0
+    st = plan.stats
+    split = (f" (mine {st.mine_sec:.1f} s, select {st.select_sec:.1f} s, "
+             f"fragment {st.fragment_sec:.1f} s, allocate "
+             f"{st.allocate_sec:.1f} s)" if st is not None else "")
+    if lp:
+        split += f" (label propagation {sum(lp):.1f} s)"
+    frags = plan.frag.fragments if plan.frag is not None else []
+    minterms = sum(1 for f in frags if f.minterm is not None
+                   and f.minterm.terms)
+    rows = [len(e) for e in plan.site_edge_ids()]
+    print(f"plan {kind} ({card}): {secs:.1f} s{split}; {len(frags)} "
+          f"fragments, {minterms} minterm fragments, redundancy "
+          f"{plan.redundancy_ratio():.4f}, resident rows per site {rows}",
+          flush=True)
+    return plan
+
+
+def strategy_serve(kind: str, plan, queries, want, card: str,
+                   dev: str = "cuda"):
+    """Serve ``queries`` on ``plan`` through ``Session(backend="spmd")``
+    on the card between a reset and a read of the launch counters, print
+    the ledger, hold every answer set against ``want`` (the vertical
+    serve's) and against the same session on the plain versions, in
+    which no kernel may launch.  Returns the launches of the serve and
+    the session."""
+    from unittest import mock
+
+    from repro_torch.core import Session
+    from repro_torch.core import spmd as spmd_module
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    session = Session(plan, backend="spmd", device=dev,
+                      spmd_max_capacity=MAX_CAPACITY)
+    print(f"store {kind} ({card}): {time.perf_counter() - t0:.1f} s, rows "
+          f"per site {session.engine.store.prop_dev_rows.sum(1).tolist()}",
+          flush=True)
+    ops.reset_launches()
+    lat: List[float] = []
+    results = []
+    t_serve = time.perf_counter()
+    for q in queries:
+        t0 = time.perf_counter()
+        results.append(session.execute(q))
+        lat.append(time.perf_counter() - t0)
+    t_serve = time.perf_counter() - t_serve
+    launches = dict(ops.LAUNCHES)
+    st = session.stats()
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"serve {kind} ({card}): {len(queries)} queries in {t_serve:.2f} "
+          f"s, qps={len(queries) / t_serve:.3f}, "
+          f"p50_ms={np.percentile(lat_ms, 50):.2f}, "
+          f"p99_ms={np.percentile(lat_ms, 99):.2f}, "
+          f"comm_bytes={st.comm_bytes}, capacity_tiers_tried="
+          f"{len(queries) + int(st.extra['capacity_retries'])}, "
+          + ", ".join(f"{k}={int(st.extra[k])}" for k in (
+              "capacity_retries", "gather_steps", "edge_shipped_steps",
+              "edge_cache_hits", "skipped_gathers", "routed_queries",
+              "compiled_shapes"))
+          + f", result_rows={st.result_rows}", flush=True)
+    print(f"launches on the {kind} serve: {launches}", flush=True)
+    for i, (r, w) in enumerate(zip(results, want)):
+        if not np.array_equal(answer_rows(r.bindings), w):
+            fail(f"{kind} plan, query {i} {queries[i].edges}: "
+                 f"{r.num_rows} rows, the vertical serve {w.shape[0]}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
+                             pair_semijoin_runs=ref.pair_semijoin_runs_ref,
+                             dedup_rows_masked=ref.dedup_rows_masked_ref,
+                             fused_join_sites=ref.fused_join_sites_ref):
+        plain = [session.execute(q) for q in queries]
+    t_plain = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        fail(f"kernels launched in the plain {kind} run: {ops.LAUNCHES}")
+    for i, (r, w) in enumerate(zip(plain, want)):
+        if not np.array_equal(answer_rows(r.bindings), w):
+            fail(f"{kind} plan, query {i} {queries[i].edges}: {r.num_rows} "
+                 f"rows on the plain versions, the vertical serve "
+                 f"{w.shape[0]}")
+    print(f"{kind}: {len(queries)} answer sets equal the vertical serve's "
+          f"and the plain versions' ({t_plain:.2f} s on the plain "
+          f"versions, {card})", flush=True)
+    missing = [k for k in JOIN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the {kind} serve: {missing}")
+    return launches, results
+
+
+def host_backends(plan, queries, results, card: str,
+                  dev: str = "cuda") -> None:
+    """The host engines on ``plan`` (``Session(backend="local")`` and
+    ``"baseline"``, which compute in numpy on the host, as the
+    reference's do): the first ``HOST_TEMPLATES`` template queries and
+    the three shape queries (the baseline without
+    ``BASELINE_SKIPPED``), answers equal to the spmd serve's."""
+    from repro_torch.core import Session
+    shapes = ("star", "chain", "cycle")
+    for backend in ("local", "baseline"):
+        idx = list(range(HOST_TEMPLATES)) + [
+            SERVED + k for k, name in enumerate(shapes)
+            if backend == "local" or name not in BASELINE_SKIPPED]
+        t0 = time.perf_counter()
+        session = Session(plan, backend=backend, device=dev)
+        got = [session.execute(queries[i]) for i in idx]
+        secs = time.perf_counter() - t0
+        for i, r in zip(idx, got):
+            if not np.array_equal(answer_rows(r.bindings),
+                                  answer_rows(results[i].bindings)):
+                fail(f"backend {backend}, query {i} {queries[i].edges}: "
+                     f"{r.num_rows} rows, the spmd serve "
+                     f"{results[i].num_rows}")
+        st = session.stats()
+        print(f"host backend {backend} on the {plan.strategy} plan "
+              f"({card}; computes on the host in numpy): {len(idx)} "
+              f"queries in "
+              f"{secs:.2f} s, comm_bytes={st.comm_bytes}, simulated "
+              f"response time {st.response_time:.6f} s, answers equal the "
+              f"spmd serve's", flush=True)
+
+
+def strategies_phase(graph, design, queries, results, card: str,
+                     dev: str = "cuda") -> Dict[str, Dict[str, int]]:
+    """The horizontal, SHAPE and WARP plans of the smoke's graph, each
+    served on the card with answers equal to the vertical serve's
+    (``results``) and to the plain versions; the host backends on the
+    horizontal plan.  Returns the launches of each serve by kind."""
+    want = [answer_rows(r.bindings) for r in results]
+    out = {}
+    for kind in STRATEGY_KINDS:
+        plan = strategy_plan(graph, design, kind, card)
+        out[kind], served = strategy_serve(kind, plan, queries, want, card,
+                                           dev)
+        if kind == "horizontal":
+            host_backends(plan, queries, served, card, dev)
+        del plan, served
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# Ledger comparisons: the seeded SPMD benches of the JAX package
+# ----------------------------------------------------------------------
+
+LEDGER_TRIPLES, LEDGER_QUERIES, LEDGER_SEED = 8_000, 500, 5
+LEDGER_SHAPE_SEED, LEDGER_PER_SHAPE = 9, 4
+LEDGER_BUDGET, LEDGER_CAPACITY = 500_000, 16384
+# the JAX package's totals (bytes) of its spmd_comm, spmd_replication and
+# spmd_routing benches, on the CPU with 4 host devices
+LEDGER_REFERENCE = {
+    "spmd_comm": {"local": 19_352, "spmd_naive": 277_452,
+                  "spmd_planned": 55_190},
+    "spmd_replication": {"spmd_planned": 55_190, "spmd_replicated": 13_454},
+    "spmd_routing": {"spmd_unrouted": 40_362, "spmd_routed": 13_454}}
+
+
+def ledger_runs(core, benches=tuple(LEDGER_REFERENCE), **session_kw
+                ) -> Dict[str, dict]:
+    """The three ledger comparisons through ``core``'s ``Session`` (this
+    port's ``repro_torch.core``, or any package with the same API):
+    ``generate_watdiv(8_000, seed=5)``, 500 design queries (seed 6), 4
+    sites, star/chain/cycle queries (seed 9, 4 of each), for each bench
+    named in ``benches``.  Each bench's sessions answer shape by shape,
+    in order.  Returns per bench the
+    bytes each session shipped per shape, the answers that differ from
+    ``match_pattern``, and each session's ``stats().extra``."""
+    graph = core.generate_watdiv(LEDGER_TRIPLES, seed=LEDGER_SEED)
+    design = core.generate_workload(graph, LEDGER_QUERIES,
+                                    seed=LEDGER_SEED + 1)
+    plan = core.build_plan(graph, design, core.PartitionConfig(
+        kind="vertical", num_sites=SITES))
+    replicated = core.build_plan(graph, design, core.PartitionConfig(
+        kind="vertical", num_sites=SITES,
+        replication_budget_bytes=LEDGER_BUDGET))
+
+    def session(p, **kw):
+        return core.Session(p, **kw, **session_kw)
+
+    make = {
+        "spmd_comm": lambda: {
+            "local": session(plan, backend="local"),
+            "spmd_naive": session(plan, backend="spmd",
+                                  spmd_comm_plan=False),
+            "spmd_planned": session(plan, backend="spmd")},
+        "spmd_replication": lambda: {
+            "spmd_planned": session(plan, backend="spmd",
+                                    spmd_capacity=LEDGER_CAPACITY),
+            "spmd_replicated": session(replicated, backend="spmd",
+                                       spmd_capacity=LEDGER_CAPACITY)},
+        "spmd_routing": lambda: {
+            "spmd_unrouted": session(replicated, backend="spmd",
+                                     spmd_capacity=LEDGER_CAPACITY,
+                                     spmd_routing=False),
+            "spmd_routed": session(replicated, backend="spmd",
+                                   spmd_capacity=LEDGER_CAPACITY)}}
+    rng = np.random.default_rng(LEDGER_SHAPE_SEED)
+    props = np.asarray(graph.p)
+    shapes: Dict[str, list] = {"star": [], "chain": [], "cycle": []}
+    for _ in range(LEDGER_PER_SHAPE):
+        for name, q in core.make_shape_queries(
+                lambda: int(props[rng.integers(0, len(props))])).items():
+            shapes[name].append(q)
+    matching = importlib.import_module(core.__name__ + ".matching")
+    want = {name: [matching.match_pattern(graph, q).num_rows for q in qs]
+            for name, qs in shapes.items()}
+    out = {}
+    for bench in benches:
+        sessions = make[bench]()
+        per_shape: Dict[str, Dict[str, int]] = {}
+        mismatches = 0
+        for shape, qs in shapes.items():
+            per_shape[shape] = {}
+            for name, sess in sessions.items():
+                before = sess.stats().comm_bytes
+                rows = [sess.execute(q).num_rows for q in qs]
+                per_shape[shape][name] = sess.stats().comm_bytes - before
+                mismatches += sum(a != b for a, b in zip(rows, want[shape]))
+        out[bench] = {"per_shape": per_shape, "mismatches": mismatches,
+                      "extra": {n: dict(s.stats().extra)
+                                for n, s in sessions.items()}}
+    return out
+
+
+def ledger_failures(runs: Dict[str, dict]) -> List[str]:
+    """What ``ledger_runs`` output breaks: a mismatch, planned above
+    naive, replicated above planned on a shape or below it on none,
+    routed above unrouted on a shape or below it on none, a total unlike
+    the JAX package's (printed per shape), or a capacity retry in
+    ``spmd_comm`` (the JAX run has none)."""
+    bad = []
+    for bench, r in runs.items():
+        if r["mismatches"]:
+            bad.append(f"{bench}: {r['mismatches']} answers differ from "
+                       f"match_pattern")
+        totals = {n: sum(v[n] for v in r["per_shape"].values())
+                  for n in LEDGER_REFERENCE[bench]}
+        if totals != LEDGER_REFERENCE[bench]:
+            bad.append(f"{bench}: totals {totals}, the JAX package's "
+                       f"{LEDGER_REFERENCE[bench]}; per shape "
+                       f"{r['per_shape']}")
+    if "spmd_comm" in runs:
+        comm = runs["spmd_comm"]["per_shape"].values()
+        if sum(v["spmd_planned"] for v in comm) > sum(v["spmd_naive"]
+                                                      for v in comm):
+            bad.append("spmd_comm: planned above naive")
+        if runs["spmd_comm"]["extra"]["spmd_planned"]["capacity_retries"]:
+            bad.append("spmd_comm: capacity retries on the planned session")
+    for bench, low, high in (("spmd_replication", "spmd_replicated",
+                              "spmd_planned"),
+                             ("spmd_routing", "spmd_routed",
+                              "spmd_unrouted")):
+        if bench not in runs:
+            continue
+        per = runs[bench]["per_shape"].values()
+        if not all(v[low] <= v[high] for v in per):
+            bad.append(f"{bench}: {low} above {high} on a shape")
+        if not any(v[low] < v[high] for v in per):
+            bad.append(f"{bench}: {low} below {high} on no shape")
+    return bad
+
+
+def ledger_phase(card: str) -> None:
+    """The seeded ledger comparisons on the card, held to their
+    properties and to the JAX package's totals."""
+    import repro_torch.core as core
+    t0 = time.perf_counter()
+    runs = ledger_runs(core, device="cuda")
+    secs = time.perf_counter() - t0
+    for bench, r in runs.items():
+        totals = {n: sum(v[n] for v in r["per_shape"].values())
+                  for n in LEDGER_REFERENCE[bench]}
+        print(f"ledger {bench} ({card}): "
+              + ", ".join(f"{n} {totals[n]} (JAX CPU {want})"
+                          for n, want in LEDGER_REFERENCE[bench].items())
+              + f", mismatches {r['mismatches']}", flush=True)
+    st = runs["spmd_comm"]["extra"]["spmd_planned"]
+    print("ledger spmd_comm planned: " + ", ".join(
+        f"{k}={int(st[k])}" for k in ("gather_steps", "edge_shipped_steps",
+                                      "skipped_gathers", "capacity_retries",
+                                      "devices"))
+          + f"; the three benches in {secs:.1f} s ({card})", flush=True)
+    bad = ledger_failures(runs)
+    if bad:
+        fail("ledger: " + "; ".join(bad))
+
+
+# ----------------------------------------------------------------------
 # LM phase
 # ----------------------------------------------------------------------
 
@@ -1849,17 +2186,19 @@ def rdf_setup():
     print(f"store: {time.perf_counter() - t0:.1f} s, rows per site "
           f"{store.prop_dev_rows.sum(1).tolist()}, width "
           f"{store.csr_sub_s.shape[1]}", flush=True)
-    return graph, plan, session
+    return graph, design, plan, session
 
 
 def spmd_phase(card: str) -> Dict[str, dict]:
-    """Phases 2 to 5: the WatDiv plan, the join kernels, the served
-    queries (``execute``, its profile, then ``execute_many``), then the
-    front door.  Returns the records of the kernels checked against the
-    store, with their launches on the ``execute`` serve (``spmd``) and
-    on the front door's served pass (``serve``)."""
+    """Phases 2 to 7: the WatDiv plan, the join kernels, the served
+    queries (``execute``, its profile, then ``execute_many``), the
+    front door, the horizontal / SHAPE / WARP plans and the host
+    backends, then the seeded ledger comparisons.  Returns the records
+    of the kernels checked against the store, with their launches on
+    the ``execute`` serve (``spmd``), on the front door's served pass
+    (``serve``) and on each strategy's serve."""
     from repro_torch.core import Session
-    graph, plan, session = rdf_setup()
+    graph, design, plan, session = rdf_setup()
     kernels = kernel_phase(session.engine.store)
     queries = served_queries(graph)
     plain = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
@@ -1882,10 +2221,16 @@ def spmd_phase(card: str) -> Dict[str, dict]:
                if path == "spmd" and served[k] <= 0]
     if missing:
         fail(f"kernels never launched on the front-door serve: {missing}")
+    del session, plan
+    torch.cuda.empty_cache()
+    strategies = strategies_phase(graph, design, queries, results, card)
+    ledger_phase(card)
     for k in kernels:
         kernels[k]["launches"] = launches[k]
         if KERNELS[k][2] == "spmd":
-            kernels[k]["paths"] = {"spmd": launches[k], "serve": served[k]}
+            kernels[k]["paths"] = {"spmd": launches[k], "serve": served[k],
+                                   **{kind: strategies[kind][k]
+                                      for kind in STRATEGY_KINDS}}
     return kernels
 
 

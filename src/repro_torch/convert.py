@@ -6,18 +6,31 @@ package (graph triples and id-space sizes, per-site edge ids, the
 replicated properties) without importing the other package: it only
 reads attributes.  ``engine_from_arrays`` builds this package's
 ``SpmdEngine`` from those arrays, so a reference plan and the port are
-served from identical per-site storage.  ``lm_params_from_numpy`` loads
-a JAX-layout parameter tree (numpy arrays, stacked ``layers`` axis)
-into this package's ``LM``.
+served from identical per-site storage.  ``plan_state_arrays`` reads a
+whole plan of any strategy the same way (fragments with their minterms,
+allocation, baseline per-site storage, selected patterns, config) and
+``plan_from_state_arrays`` rebuilds this package's ``PartitionPlan``
+from it, data dictionary included, so one plan is served by every
+backend of either package.  ``lm_params_from_numpy`` loads a JAX-layout
+parameter tree (numpy arrays, stacked ``layers`` axis) into this
+package's ``LM``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from .core.allocation import Allocation
+from .core.baselines import BaselineFragmentation
+from .core.dictionary import DataDictionary
+from .core.fragmentation import (Fragment, Fragmentation, MintermPredicate,
+                                 SimplePredicate)
 from .core.graph import RDFGraph
+from .core.plan import PartitionConfig, PartitionPlan
+from .core.query import QueryGraph
 from .core.spmd import SpmdEngine
 from .device import resolve_device
 from .models import LM, ModelConfig
@@ -52,6 +65,109 @@ def engine_from_arrays(arrays: PlanArrays,
     return SpmdEngine(graph, site_edge_ids, device=device,
                       replicated_props=set(arrays["replicated_props"]),
                       **engine_kw)
+
+
+def _edges_array(q) -> np.ndarray:
+    """A query graph's edges as an (n, 3) int64 array of (src, dst,
+    prop)."""
+    return np.asarray([(e.src, e.dst, e.prop) for e in q.edges],
+                      np.int64).reshape(-1, 3)
+
+
+def _minterm_array(mt) -> Optional[np.ndarray]:
+    """A minterm's terms as a (k, 3) int64 array of (var, value, equal),
+    or ``None`` for a fragment without one."""
+    if mt is None:
+        return None
+    return np.asarray([(t.var, t.value, int(bool(t.equal)))
+                       for t in mt.terms], np.int64).reshape(-1, 3)
+
+
+def plan_state_arrays(plan) -> PlanArrays:
+    """A plan of either package, of any strategy, as numpy arrays, ints,
+    strings and lists of them: the graph, the fragments (edge ids,
+    pattern index, minterm, card, kind) and cold fragments, the
+    allocation's ``site_of``, the baseline per-site storage and its
+    name, the selected patterns' edges, the cold and replicated
+    properties and the config's fields.  Reads attributes only."""
+    g = plan.graph
+    out: PlanArrays = {
+        "strategy": str(plan.strategy),
+        "config": dict(dataclasses.asdict(plan.config)),
+        "s": np.asarray(g.s, np.int32), "p": np.asarray(g.p, np.int32),
+        "o": np.asarray(g.o, np.int32),
+        "num_vertices": int(g.num_vertices),
+        "num_properties": int(g.num_properties),
+        "selected_patterns": [_edges_array(q)
+                              for q in plan.selected_patterns],
+        "cold_props": sorted(int(p) for p in plan.cold_props),
+        "replicated_props": sorted(int(p) for p in plan.replicated_props),
+        "frag": None, "site_of": None, "baseline": None}
+    if plan.frag is not None:
+        out["frag"] = {
+            "kind": str(plan.frag.kind),
+            "edge_ids": [np.asarray(f.edge_ids, np.int64)
+                         for f in plan.frag.fragments],
+            "pattern_idx": [int(f.pattern_idx) for f in plan.frag.fragments],
+            "minterm_terms": [_minterm_array(f.minterm)
+                              for f in plan.frag.fragments],
+            "card": [int(f.card) for f in plan.frag.fragments],
+            "kinds": [str(f.kind) for f in plan.frag.fragments],
+            "cold_edge_ids": [np.asarray(f.edge_ids, np.int64)
+                              for f in plan.frag.cold_fragments],
+            "cold_kinds": [str(f.kind) for f in plan.frag.cold_fragments]}
+    if plan.alloc is not None:
+        out["site_of"] = np.asarray(plan.alloc.site_of, np.int64)
+    if plan.baseline_frag is not None:
+        out["baseline"] = {
+            "name": str(plan.baseline_frag.name),
+            "site_edges": [np.asarray(e, np.int64)
+                           for e in plan.baseline_frag.site_edges]}
+    return out
+
+
+def plan_from_state_arrays(arrays: PlanArrays) -> PartitionPlan:
+    """This package's ``PartitionPlan`` from ``plan_state_arrays``
+    output, with its ``DataDictionary`` rebuilt (the offline phase does
+    not run again).  The design workload and selection provenance are
+    not carried."""
+    cfg = PartitionConfig(**arrays["config"])
+    graph = RDFGraph(arrays["s"], arrays["p"], arrays["o"],
+                     arrays["num_vertices"], arrays["num_properties"])
+    patterns = [QueryGraph.make(tuple(int(x) for x in row) for row in e)
+                for e in arrays["selected_patterns"]]
+    frag = alloc = dictionary = baseline = None
+    fa = arrays["frag"]
+    if fa is not None:
+        frags = []
+        for i, eids in enumerate(fa["edge_ids"]):
+            terms = fa["minterm_terms"][i]
+            # a minterm splits its own fragment's pattern
+            mt = None if terms is None else MintermPredicate(
+                fa["pattern_idx"][i],
+                tuple(SimplePredicate(int(v), int(val), bool(eq))
+                      for v, val, eq in terms))
+            frags.append(Fragment(np.asarray(eids, np.int64),
+                                  fa["pattern_idx"][i], mt, fa["card"][i],
+                                  fa["kinds"][i]))
+        cold = [Fragment(np.asarray(e, np.int64), -1, None, 0, k)
+                for e, k in zip(fa["cold_edge_ids"], fa["cold_kinds"])]
+        frag = Fragmentation(frags, list(patterns), fa["kind"], cold)
+    if arrays["site_of"] is not None:
+        alloc = Allocation(np.asarray(arrays["site_of"], np.int64),
+                           cfg.num_sites)
+    if frag is not None and alloc is not None:
+        dictionary = DataDictionary.build(graph, frag, alloc, cfg.num_sites)
+    if arrays["baseline"] is not None:
+        b = arrays["baseline"]
+        baseline = BaselineFragmentation(
+            [np.asarray(e, np.int64) for e in b["site_edges"]], b["name"])
+    return PartitionPlan(
+        strategy=arrays["strategy"], config=cfg, graph=graph,
+        selected_patterns=patterns, frag=frag, alloc=alloc,
+        dictionary=dictionary, cold_props=set(arrays["cold_props"]),
+        baseline_frag=baseline,
+        replicated_props=set(arrays["replicated_props"]))
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

@@ -19,7 +19,7 @@ a byte budget, so their join steps ship nothing at all.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -31,6 +31,18 @@ class Allocation:
     """A = {A_1..A_m}: partition of fragment indices onto m sites (Def. 4)."""
     site_of: np.ndarray           # fragment index -> site id
     num_sites: int
+
+    def groups(self) -> List[List[int]]:
+        out: List[List[int]] = [[] for _ in range(self.num_sites)]
+        for fi, s in enumerate(self.site_of):
+            out[int(s)].append(fi)
+        return out
+
+    def is_partition(self, num_fragments: int) -> bool:
+        """Def. 4 invariants: total, disjoint (by construction), non-neg."""
+        return (len(self.site_of) == num_fragments
+                and (self.site_of >= 0).all()
+                and (self.site_of < self.num_sites).all())
 
 
 def affinity_matrix(usage: np.ndarray, weights: Optional[np.ndarray] = None
@@ -45,11 +57,17 @@ def affinity_matrix(usage: np.ndarray, weights: Optional[np.ndarray] = None
 def fragment_affinity(frag: Fragmentation, usage: np.ndarray,
                       weights: Optional[np.ndarray] = None) -> np.ndarray:
     """Lift pattern-level affinity to fragments.  Vertical fragments map
-    1:1 to patterns (the horizontal strategy, whose minterm fragments
-    damp their mutual affinity, is not ported yet)."""
+    1:1 to patterns; horizontal fragments inherit their pattern's
+    affinities (minterm usage refines pattern usage; queries that use the
+    same pattern with compatible constants co-access the minterms)."""
     pat_aff = affinity_matrix(usage, weights)
     pidx = np.array([f.pattern_idx for f in frag.fragments], dtype=np.int64)
     A = pat_aff[np.ix_(pidx, pidx)]
+    if frag.kind == "horizontal":
+        # distinct minterms of the same pattern are accessed *instead of*
+        # each other for point queries -> damp their mutual affinity
+        same = pidx[:, None] == pidx[None, :]
+        A = np.where(same, A * 0.5, A)
     np.fill_diagonal(A, 0.0)
     return A
 
@@ -163,6 +181,9 @@ class ReplicationPlan:
     def prop_set(self) -> Set[int]:
         return set(self.props)
 
+    def within_budget(self) -> bool:
+        return self.spent_bytes <= self.budget_bytes
+
 
 def workload_property_heat(queries: Sequence, weights: Optional[np.ndarray],
                            num_properties: int) -> np.ndarray:
@@ -254,3 +275,23 @@ def replicated_edge_ids(graph, props: Set[int]) -> np.ndarray:
         return np.zeros(0, np.int64)
     mask = np.isin(np.asarray(graph.p), np.fromiter(props, dtype=np.int64))
     return np.nonzero(mask)[0].astype(np.int64)
+
+
+def property_site_map(graph, site_edge_ids: Sequence[np.ndarray]
+                      ) -> Dict[int, Tuple[int, ...]]:
+    """The fragment->site map folded to property granularity: for each
+    property with resident edges, the sorted sites holding at least one
+    of them.  This is what the routing layer consumes
+    (``core.routing``): a query only needs the union of its
+    properties' holder sets, so everything else can be masked out of
+    its execution.  Properties replicated everywhere
+    (``ReplicationPlan.props``) map to every site; a property with no
+    resident edges is absent from the map."""
+    p = np.asarray(graph.p)
+    out: Dict[int, set] = {}
+    for j, eids in enumerate(site_edge_ids):
+        eids = np.asarray(eids, np.int64)
+        for prop in np.unique(p[eids]) if len(eids) else ():
+            out.setdefault(int(prop), set()).add(j)
+    return {prop: tuple(sorted(sites))
+            for prop, sites in sorted(out.items())}

@@ -1,5 +1,14 @@
-"""The ``Engine`` surface shared by the execution backends: one query,
-a stream of queries, cumulative counters and post-execute observers.
+"""The ``Engine`` protocol shared by the execution backends (the host
+``DistributedEngine``, the ``BaselineEngine``, the ``SpmdEngine``):
+
+* ``execute(query) -> QueryResult``        -- one query;
+* ``execute_many(queries, batch_size)``    -- a stream, chunked into
+  batches (backends may override ``_execute_batch`` to exploit
+  structure inside a batch);
+* ``stats() -> EngineStats``               -- cumulative counters;
+* ``post_execute_hooks``                   -- observers called as
+  ``hook(query, result)`` after every execution;
+* ``num_sites``                            -- cluster width.
 
 ``EngineBase`` keeps the counters under the names the reference
 engines use and publishes them through the telemetry layer
@@ -14,7 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Sequence)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Protocol,
+                    Sequence, runtime_checkable)
 
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
@@ -47,6 +57,32 @@ class EngineStats:
     backend: str = ""
     strategy: str = ""
     extra: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """Structural type every execution backend satisfies (see the
+    module docstring for the contract semantics)."""
+
+    post_execute_hooks: List[Callable[["QueryGraph", "QueryResult"], None]]
+
+    @property
+    def num_sites(self) -> int:
+        """Logical cluster width."""
+        ...
+
+    def execute(self, query: "QueryGraph") -> "QueryResult":
+        """Answer one query exactly."""
+        ...
+
+    def execute_many(self, queries: Sequence["QueryGraph"],
+                     batch_size: int = 64) -> List["QueryResult"]:
+        """Answer a stream in batches; results in input order."""
+        ...
+
+    def stats(self) -> EngineStats:
+        """Cumulative counters since construction."""
+        ...
 
 
 class EngineBase:

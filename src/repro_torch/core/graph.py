@@ -88,6 +88,8 @@ class RDFGraph:
         eids = self._prop_order[lo:hi]
         return eids, self.s[eids], self.o[eids]
 
+    def property_counts(self) -> np.ndarray:
+        return np.bincount(self.p, minlength=self.num_properties)
 
     # ------------------------------------------------------------------
     def edge_ids_for_triples(self, s: np.ndarray, p: np.ndarray, o: np.ndarray) -> np.ndarray:
@@ -120,9 +122,61 @@ class RDFGraph:
         cold = np.nonzero(~mask[self.p])[0]
         return hot, cold
 
+    # ------------------------------------------------------------------
+    def subgraph(self, edge_ids: np.ndarray) -> "RDFGraph":
+        edge_ids = np.asarray(edge_ids, dtype=np.int64)
+        return RDFGraph(
+            s=self.s[edge_ids], p=self.p[edge_ids], o=self.o[edge_ids],
+            num_vertices=self.num_vertices, num_properties=self.num_properties,
+            vertex_names=self.vertex_names, property_names=self.property_names,
+        )
+
 # ======================================================================
 # Dataset generators
 # ======================================================================
+
+def example_graph() -> RDFGraph:
+    """A small graph in the spirit of the paper's Fig. 1 running example
+    (philosophers, books, influences).  Used by unit tests and docs."""
+    V = ["Aristotle", "Plato", "Socrates", "Ethics", "Politics", "Republic",
+         "Philosopher", "Book", "Stagira", "Athens", "Greece", "img1", "tpl1",
+         "Kant", "Critique", "Hegel"]
+    P = ["type", "influencedBy", "author", "mainInterest", "birthPlace",
+         "country", "imageSkyline", "wikiPageUsesTemplate", "notableIdea"]
+    vi = {v: i for i, v in enumerate(V)}
+    pi = {p: i for i, p in enumerate(P)}
+    triples = [
+        ("Aristotle", "type", "Philosopher"),
+        ("Plato", "type", "Philosopher"),
+        ("Socrates", "type", "Philosopher"),
+        ("Kant", "type", "Philosopher"),
+        ("Hegel", "type", "Philosopher"),
+        ("Ethics", "type", "Book"),
+        ("Politics", "type", "Book"),
+        ("Republic", "type", "Book"),
+        ("Critique", "type", "Book"),
+        ("Aristotle", "influencedBy", "Plato"),
+        ("Plato", "influencedBy", "Socrates"),
+        ("Kant", "influencedBy", "Aristotle"),
+        ("Hegel", "influencedBy", "Kant"),
+        ("Aristotle", "author", "Ethics"),
+        ("Aristotle", "author", "Politics"),
+        ("Plato", "author", "Republic"),
+        ("Kant", "author", "Critique"),
+        ("Aristotle", "mainInterest", "Ethics"),
+        ("Aristotle", "birthPlace", "Stagira"),
+        ("Plato", "birthPlace", "Athens"),
+        ("Stagira", "country", "Greece"),
+        ("Athens", "country", "Greece"),
+        ("Athens", "imageSkyline", "img1"),
+        ("Aristotle", "wikiPageUsesTemplate", "tpl1"),
+        ("Plato", "notableIdea", "Republic"),
+    ]
+    s = np.array([vi[a] for a, _, _ in triples], np.int32)
+    p = np.array([pi[b] for _, b, _ in triples], np.int32)
+    o = np.array([vi[c] for _, _, c in triples], np.int32)
+    return RDFGraph(s, p, o, len(V), len(P), V, P)
+
 
 @dataclasses.dataclass
 class WatDivSchema:

@@ -28,6 +28,12 @@ class MatchResult:
     num_rows: int
     truncated: bool = False
 
+    def rows(self) -> np.ndarray:
+        keys = sorted(self.columns)
+        if not keys:
+            return np.zeros((self.num_rows, 0), np.int32)
+        return np.stack([self.columns[k] for k in keys], axis=1)
+
 
 class _PropIndex:
     """Per-property edge tables sorted by subject and by object."""
@@ -57,6 +63,9 @@ class _PropIndex:
             nv = self.graph.num_vertices + 1
             self._pair[pid] = np.sort(s.astype(np.int64) * nv + o.astype(np.int64))
         return self._pair[pid]
+
+    def count(self, pid: int) -> int:
+        return len(self.by_subject(pid)[0])
 
 
 def _expand(values: np.ndarray, sorted_keys: np.ndarray,
@@ -247,3 +256,7 @@ def match_edge_ids(graph: RDFGraph, pattern: QueryGraph,
     return np.unique(np.concatenate(eids))
 
 
+def count_matches(graph: RDFGraph, pattern: QueryGraph,
+                  index: Optional[_PropIndex] = None,
+                  max_rows: int = 5_000_000) -> int:
+    return match_pattern(graph, pattern, index=index, max_rows=max_rows).num_rows

@@ -52,17 +52,36 @@ class QueryGraph:
     def variables(self) -> List[int]:
         return [v for v in self.vertices() if v < 0]
 
+    def constants(self) -> List[int]:
+        return [v for v in self.vertices() if v >= 0]
 
     def properties(self) -> List[int]:
         return [e.prop for e in self.edges]
 
+    def is_connected(self) -> bool:
+        vs = self.vertices()
+        if not vs:
+            return True
+        adj: Dict[int, List[int]] = {v: [] for v in vs}
+        for e in self.edges:
+            adj[e.src].append(e.dst)
+            adj[e.dst].append(e.src)
+        stack, seen = [vs[0]], {vs[0]}
+        while stack:
+            v = stack.pop()
+            for w in adj[v]:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        return len(seen) == len(vs)
 
     # ------------------------------------------------------------------
     def normalization_map(self) -> Dict[int, int]:
         """Original vertex id -> normalized variable id, in edge/endpoint
-        traversal order.  THE canonical traversal: ``normalize`` is
-        defined in terms of it, and the SPMD engine uses it to re-apply
-        constants after matching a normalized pattern."""
+        traversal order.  THE canonical traversal: ``normalize`` and
+        ``constant_bindings`` are defined in terms of it, and the SPMD
+        engine uses it to re-apply constants after matching a normalized
+        pattern."""
         mapping: Dict[int, int] = {}
         nxt = -1
         for e in self.edges:
@@ -79,6 +98,12 @@ class QueryGraph:
         m = self.normalization_map()
         return QueryGraph(tuple(QueryEdge(m[e.src], m[e.dst], e.prop)
                                 for e in self.edges))
+
+    def constant_bindings(self) -> Dict[int, int]:
+        """Map normalized-variable id -> original constant (for minterm
+        predicate mining, §5.2)."""
+        return {nv: v for v, nv in self.normalization_map().items()
+                if v >= 0}
 
     # ------------------------------------------------------------------
     def canonical_code(self) -> Tuple:

@@ -1,9 +1,21 @@
 """``Session``: the query-facing entry point over a ``PartitionPlan``.
 
-Only the ``"spmd"`` backend is ported so far: the plan's sites run in
-lock step on one device (``repro_torch.core.spmd``).  The host
-``"local"`` and ``"baseline"`` engines and the ``"adaptive"`` control
-plane come in later slices.
+A ``PartitionPlan`` says *where the data lives*; a ``Session`` says *how
+queries run against it*.  The same plan can be served by three backends
+through the one ``Engine`` protocol:
+
+* ``"spmd"``     -- the plan's sites in lock step on one device
+                    (``repro_torch.core.spmd``), the join kernels in
+                    the match loop;
+* ``"local"``    -- the paper's exact host ``DistributedEngine`` over
+                    the fragment allocation (Algorithms 3+4);
+* ``"baseline"`` -- the gather-all ``BaselineEngine`` over the plan's
+                    per-site storage (the SHAPE/WARP execution model).
+
+The local and baseline engines compute in numpy on the host, as the
+reference's do: they are the paper's host engine and its §8 baseline
+simulator, not a stand-in for the SPMD backend, which never gives way
+to them.  The ``"adaptive"`` control plane is not ported yet.
 
 Typical use::
 
@@ -19,12 +31,13 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from ..device import resolve_device
 from .engine import EngineStats
 from .executor import CostModel, QueryResult
 from .plan import PartitionPlan
 from .query import QueryGraph
 
-BACKENDS = ("spmd",)
+BACKENDS = ("local", "baseline", "spmd")
 
 
 class Session:
@@ -45,11 +58,15 @@ class Session:
 
         Args:
             plan: the ``PartitionPlan`` to serve.
-            backend: ``"spmd"`` (the only backend ported so far).
-            device: where the store lives and the joins run ("cuda" by
-                default, raising if CUDA is missing; "cpu" runs the
-                kernels' plain versions).
-            cost: optional ``CostModel`` for the ledger.
+            backend: one of ``BACKENDS`` -- ``"spmd"`` (default),
+                ``"local"`` or ``"baseline"``.
+            device: "cuda" by default, raising if CUDA is missing, for
+                every backend; "cpu" only when asked.  The spmd store
+                lives and its joins run there ("cpu" runs the kernels'
+                plain versions); the local and baseline engines compute
+                on the host either way.
+            cost: optional ``CostModel`` for the ledger, shared by
+                every backend.
             spmd_devices: width of the site axis the logical sites fold
                 onto (default: one slot per logical site).
             spmd_capacity: starting per-site binding-table rows.
@@ -71,17 +88,30 @@ class Session:
                 default is the process registry.
 
         Raises:
-            ValueError: a backend that is not ported.
+            ValueError: an unknown backend, ``"adaptive"`` (not ported
+                yet), or a plan that cannot serve the requested backend.
+            RuntimeError: ``device`` is CUDA and there is none.
         """
+        if backend == "adaptive":
+            raise ValueError("backend 'adaptive' (the online control "
+                             "plane) is not ported yet; available: "
+                             f"{list(BACKENDS)}")
         if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r} is not ported; "
-                             f"available: {list(BACKENDS)}")
+            raise ValueError(f"unknown backend {backend!r}; "
+                             f"choose one of {list(BACKENDS)}")
         self.plan = plan
         self.backend = backend
-        self.engine = plan.build_spmd_engine(
-            device=device, num_devices=spmd_devices, capacity=spmd_capacity,
-            cost=cost, max_capacity=spmd_max_capacity,
-            comm_plan=spmd_comm_plan, routing=spmd_routing)
+        if backend == "spmd":
+            self.engine = plan.build_spmd_engine(
+                device=device, num_devices=spmd_devices,
+                capacity=spmd_capacity, cost=cost,
+                max_capacity=spmd_max_capacity, comm_plan=spmd_comm_plan,
+                routing=spmd_routing)
+        else:
+            resolve_device(device)   # the host engines keep the rule too
+            self.engine = (plan.build_local_engine(cost)
+                           if backend == "local"
+                           else plan.build_baseline_engine(cost))
         if tracer is None and trace:
             from ..obs.trace import Tracer
             tracer = Tracer(enabled=True)
@@ -103,10 +133,12 @@ class Session:
         return self.engine.num_sites
 
     def route_key(self, query: QueryGraph):
-        """The engine's routing token for ``query`` (the route's member
-        sites, or ``None``).  The serving layer folds it into its
-        shape-bucket keys so micro-batches stay route-coherent."""
-        return self.engine.route_key(query)
+        """The backend's routing token for ``query`` (the SPMD route's
+        member sites), or ``None`` on backends without routing.  The
+        serving layer folds it into its shape-bucket keys so
+        micro-batches stay route-coherent."""
+        rk = getattr(self.engine, "route_key", None)
+        return rk(query) if rk is not None else None
 
     @property
     def tracer(self):

@@ -51,6 +51,7 @@ from ..kernels.ops import (compact_rows, dedup_rows_masked,
                            fused_join_sites, join_range, pair_semijoin_runs)
 from .engine import EngineBase
 from .executor import CostModel, ExecStats, QueryResult
+from .fragmentation import Fragmentation
 from .graph import RDFGraph
 from .query import PROP_VAR, QueryGraph, _connected_edge_order
 from .routing import RoutePlan, plan_route, route_prop_complete
@@ -227,6 +228,26 @@ class SiteStore:
             return 8
         per_dev = int(self.prop_dev_owned[:, prop].max(initial=0))
         return int(np.ceil(max(per_dev, 1) / 8) * 8)
+
+    @staticmethod
+    def from_fragmentation(graph: RDFGraph, frag: Fragmentation,
+                           site_of: np.ndarray, num_sites: int,
+                           include_cold: bool = True,
+                           device: Union[str, torch.device] = "cuda"
+                           ) -> "SiteStore":
+        """``build`` over the sites a fragment allocation gives: each
+        site holds its fragments' edges (overlapping fragments once)
+        and, with ``include_cold``, the cold fragments round-robin."""
+        per_site: List[np.ndarray] = []
+        for j in range(num_sites):
+            ids = [f.edge_ids for fi, f in enumerate(frag.fragments)
+                   if int(site_of[fi]) == j]
+            if include_cold:
+                ids += [f.edge_ids for k, f in enumerate(frag.cold_fragments)
+                        if k % num_sites == j]
+            per_site.append(np.unique(np.concatenate(ids))
+                            if ids else np.zeros(0, np.int64))
+        return SiteStore.build(graph, per_site, device=device)
 
 
 # ----------------------------------------------------------------------

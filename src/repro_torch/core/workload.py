@@ -30,6 +30,8 @@ class Workload:
     def __len__(self) -> int:
         return len(self.queries)
 
+    def normalized(self) -> List[QueryGraph]:
+        return [q.normalize() for q in self.queries]
 
     def dedup_normalized(self) -> Tuple[List[QueryGraph], np.ndarray]:
         """Unique normalized query graphs + multiplicity weights.
@@ -105,6 +107,10 @@ def watdiv_templates() -> List[QueryGraph]:
     t.append(QueryGraph.make([(V(0), V(1), P["likes"])]))
     t.append(QueryGraph.make([(V(0), V(1), P["follows"])]))
     return t
+
+
+TEMPLATE_CLASS = ["L", "L", "L", "S", "S", "S", "S", "F", "F", "C", "C",
+                  "S", "S"]  # structural class per template above
 
 
 def make_shape_queries(next_prop, k: int = 3) -> Dict[str, QueryGraph]:
@@ -192,3 +198,11 @@ def generate_workload(graph: RDFGraph, num_queries: int, seed: int = 0,
     return Workload(queries, tids)
 
 
+def class_template_probs(class_weights: Dict[str, float],
+                         base: float = 0.05) -> np.ndarray:
+    """Template-probability vector from structural-class weights, e.g.
+    ``{"S": 8.0}`` makes the workload star-heavy.  ``base`` is the floor
+    weight every template keeps so no shape disappears entirely."""
+    w = np.array([base + class_weights.get(cls, 0.0)
+                  for cls in TEMPLATE_CLASS], dtype=np.float64)
+    return w / w.sum()

@@ -100,6 +100,13 @@ def test_entry_points_default_to_the_card():
     plan = build_plan(g, Workload([q]), PartitionConfig(num_sites=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         Session(plan)
+    # the host backends keep the device contract too: they compute in
+    # numpy on the host, but only where the caller asked for the CPU
+    for backend in ("local", "baseline"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Session(plan, backend=backend)
+        assert Session(plan, backend=backend,
+                       device="cpu").execute(q).num_rows == 2
     sess = Session(plan, device="cpu")
     built = []
     orig_init = SpmdEngine.__init__

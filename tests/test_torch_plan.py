@@ -144,14 +144,22 @@ def test_graph_rejects_ids_past_the_bound():
 
 
 def test_unported_strategy_and_backend_are_refused():
-    with pytest.raises(ValueError):
-        TConfig(kind="horizontal")
+    """An unknown strategy and the not yet ported ``"adaptive"`` backend
+    are refused, each naming what is available."""
+    with pytest.raises(ValueError) as ei:
+        TConfig(kind="metis")
+    for name in ("vertical", "horizontal", "shape", "warp"):
+        assert name in str(ei.value)
     g = random_graph(SEED)
     tplan = T.build_plan(_port_graph(g), _port_workload(JWorkload(
         shape_workload(g, SEED, n_props=g.num_properties))),
         TConfig(num_sites=2))
-    with pytest.raises(ValueError):
-        T.Session(tplan, backend="local", device="cpu")
+    with pytest.raises(ValueError, match="adaptive") as ei:
+        T.Session(tplan, backend="adaptive", device="cpu")
+    for name in T.BACKENDS:
+        assert name in str(ei.value)
+    with pytest.raises(ValueError, match="unknown backend"):
+        T.Session(tplan, backend="gstore", device="cpu")
 
 
 @pytest.mark.parametrize("max_rows", [10, 333, 5000])

@@ -2,7 +2,10 @@
 graph, its shape workload and 4-site vertical plan, the routine that
 serves one plan through the JAX ``SpmdEngine`` and the port's and
 compares everything both report, exactly, and the runner that puts the
-JAX package's own telemetry and serving unit tests through the port."""
+JAX package's own unit tests (telemetry, serving, planning) through the
+port."""
+import copy
+import dataclasses
 import importlib
 import inspect
 
@@ -58,19 +61,37 @@ def tplan(rgraph, rqueries):
 
 
 def differential(plan, queries, mesh_n, capacity, comm_plan=True,
-                 routing=True):
+                 routing=True, via_state=False):
     """Serve ``queries`` through both engines and compare everything the
-    engines report.  Returns the port engine's stats."""
+    engines report.  The port's engine is built from the plan's serving
+    arrays (``convert.plan_arrays``), or with ``via_state`` from the
+    port's own ``PartitionPlan`` rebuilt from the whole plan
+    (``convert.plan_state_arrays``).  Returns the port engine's
+    stats."""
     jeng = Session(plan, backend="spmd", mesh=make_host_mesh(mesh_n),
                    spmd_capacity=capacity, spmd_comm_plan=comm_plan,
                    spmd_routing=routing).engine
-    teng = convert.engine_from_arrays(
-        convert.plan_arrays(plan), device="cpu", num_devices=mesh_n,
-        capacity=capacity, comm_plan=comm_plan, routing=routing)
+    kw = dict(device="cpu", num_devices=mesh_n, capacity=capacity,
+              comm_plan=comm_plan, routing=routing)
+    if via_state:
+        teng = convert.plan_from_state_arrays(
+            convert.plan_state_arrays(plan)).build_spmd_engine(**kw)
+    else:
+        teng = convert.engine_from_arrays(convert.plan_arrays(plan), **kw)
     tgraph = RDFGraph(plan.graph.s, plan.graph.p, plan.graph.o,
                       plan.graph.num_vertices, plan.graph.num_properties)
+    # residency metadata the planner and the router read: identical
+    for f in ("prop_dev_rows", "prop_dev_distinct", "prop_union_rows",
+              "prop_dev_owned"):
+        np.testing.assert_array_equal(getattr(teng.store, f),
+                                      np.asarray(getattr(jeng.store, f)))
     for q in queries:
         tq = port_query(q)
+        jroute = jeng._route(q.normalize())
+        troute = teng._route(tq.normalize())
+        assert (troute is None) == (jroute is None)
+        if jroute is not None:
+            assert dataclasses.asdict(troute) == dataclasses.asdict(jroute)
         jr, tr = jeng.execute(q), teng.execute(tq)
         want = answer_set(jr)
         assert answer_set(tr) == want, f"answers diverged on {q.edges}"
@@ -100,7 +121,9 @@ def differential(plan, queries, mesh_n, capacity, comm_plan=True,
 # constants the reference test modules import by name (no __module__)
 _PORT_CONSTANTS = {"REQUIRED_METRICS": "repro.obs.export",
                    "REQUIRED_SERVE_METRICS": "repro.obs.export",
-                   "SNAPSHOT_SCHEMA": "repro.obs.export"}
+                   "SNAPSHOT_SCHEMA": "repro.obs.export",
+                   "BACKENDS": "repro.core.session"}
+_SWAPPED_PACKAGES = ("repro.obs", "repro.serve", "repro.core")
 
 
 def reference_unit_tests(module):
@@ -112,24 +135,78 @@ def reference_unit_tests(module):
         and set(inspect.signature(fn).parameters) <= {"tmp_path"})
 
 
+def _names_used(fn):
+    """Global names a test reads, through the wrapper a property-test
+    decorator puts around it."""
+    names = set(fn.__code__.co_names)
+    for cell in fn.__closure__ or ():
+        inner = cell.cell_contents
+        if callable(inner) and hasattr(inner, "__code__"):
+            names |= set(inner.__code__.co_names)
+    return names
+
+
 def run_reference_test(module, name, package, monkeypatch, tmp_path):
     """Run ``module.<name>`` with every name it imported from the JAX
-    package's ``obs`` / ``serve`` bound to ``package``'s module of the
-    same path (``"repro"`` leaves it as it is, ``"repro_torch"`` swaps
-    in the port), so one scenario checks both implementations."""
+    package's ``obs`` / ``serve`` / ``core`` bound to ``package``'s
+    module of the same path (``"repro"`` leaves it as it is,
+    ``"repro_torch"`` swaps in the port), so one scenario checks both
+    implementations.  Every such name the test reads must exist in the
+    port."""
+    fn = getattr(module, name)
     if package == "repro_torch":
-        swapped = 0
+        swapped, missing = set(), set()
         for attr, val in list(vars(module).items()):
             src = _PORT_CONSTANTS.get(attr) or getattr(val, "__module__",
                                                        None)
-            if isinstance(src, str) and src.startswith(("repro.obs",
-                                                        "repro.serve")):
+            if not (isinstance(src, str)
+                    and src.startswith(_SWAPPED_PACKAGES)):
+                continue
+            try:
                 port = importlib.import_module("repro_torch"
                                                + src[len("repro"):])
-                monkeypatch.setattr(module, attr, getattr(port, attr))
-                swapped += 1
+            except ImportError:
+                port = None
+            if port is None or not hasattr(port, attr):
+                missing.add(attr)
+                continue
+            monkeypatch.setattr(module, attr, getattr(port, attr))
+            swapped.add(attr)
         assert swapped, f"{module.__name__} imports nothing to swap"
-    fn = getattr(module, name)
+        unported = missing & _names_used(fn)
+        assert not unported, f"{name} reads names the port lacks: {unported}"
     kw = ({"tmp_path": tmp_path}
           if "tmp_path" in inspect.signature(fn).parameters else {})
     fn(**kw)
+
+
+# ----------------------------------------------------------------------
+# The seeded ledger benches (``chip_smoke.ledger_runs``) on both packages
+# ----------------------------------------------------------------------
+
+def assert_same_ledger(want, got, bench, reference_totals):
+    """``ledger_runs`` output of the port (``got``) equals the JAX
+    package's (``want``) for ``bench``: bytes per session and shape,
+    answers, every session's ``stats().extra``; and the totals equal
+    ``reference_totals``."""
+    w, g = want[bench], got[bench]
+    assert g["per_shape"] == w["per_shape"]
+    assert g["mismatches"] == w["mismatches"] == 0
+    assert g["extra"] == w["extra"]
+    totals = {name: sum(v[name] for v in g["per_shape"].values())
+              for name in reference_totals}
+    assert totals == reference_totals
+
+
+def assert_ledger_checker_catches(runs, bench, low, high, failures):
+    """``failures`` (``chip_smoke.ledger_failures``) reports a changed
+    total and ``low``'s ledger above ``high``'s on one shape, and also
+    ``low`` below ``high`` on no shape."""
+    runs = copy.deepcopy(runs)
+    runs[bench]["per_shape"]["star"][low] += 10**6
+    bad = failures(runs)
+    assert any(b.startswith(f"{bench}: totals") for b in bad)
+    assert f"{bench}: {low} above {high} on a shape" in bad
+    for v in runs[bench]["per_shape"].values():
+        v[low] = v[high]
+    assert f"{bench}: {low} below {high} on no shape" in failures(runs)
