@@ -66,7 +66,28 @@ Phases, each fatal on any error or mismatch:
    door between two halves of the list (answers unchanged, the swap's
    seconds and peak device memory); ``python -m repro_torch.serve
    --smoke``'s ``main`` in-process on the card.
-6. strategies, on the same graph and design workload: the horizontal
+6. the online adaptive loop on the same plan: a drifting stream
+   (``generate_drifting_workload``, 200 uniform then 400 star-heavy
+   queries, every template query bound to a constant) through
+   ``Session(plan, backend="adaptive")`` with the SPMD data plane
+   (epochs of 100 queries, a 9,000,000-byte migration budget): a line
+   per epoch (drift, migration bytes and makespan, re-fragmentation
+   seconds by step, ``swap_store`` seconds, store generation, resident
+   rows per site), the serve before and after the first hot swap, the
+   launches on both sides of it (every join kernel must launch on
+   both), trace<->ledger on every tenth query, every answer against a
+   static session of the original plan on the plain versions, the
+   budget, the realized allocation and coverage after every
+   re-partition, the same engine object throughout; the JAX package's
+   ``bench_adaptive`` and ``bench_lifecycle`` at their own size, held
+   to its values (``ONLINE_REFERENCE``); the original and the adapted
+   plan through a ``PlanRepository`` (save / load seconds, bytes on
+   disk, the latest equal to the adapted plan, provenance, monitor
+   state); a seeded delta of 20,000 added and 10,000 removed triples
+   through ``ingest_delta`` and a hot swap with the new graph, the
+   served queries on it against the plain versions and
+   ``match_pattern`` on the new graph.
+7. strategies, on the same graph and design workload: the horizontal
    (minterm predicates), SHAPE and WARP plans at full size (seconds
    split by offline step, WARP's label propagation on its own,
    fragments, minterm fragments, redundancy, resident rows per site),
@@ -78,7 +99,7 @@ Phases, each fatal on any error or mismatch:
    with the spmd serve's answers.  Then the JAX package's seeded ledger
    benches (``spmd_comm``, ``spmd_replication``, ``spmd_routing``) on
    the card, held to their properties and to the JAX package's totals.
-7. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
+8. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, rows with no visible key, one layer at 1 x 32768), each held to
    the JAX package's elementwise tolerance and to a row-relative bound,
@@ -91,16 +112,17 @@ Phases, each fatal on any error or mismatch:
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
-8. the kernels as one JSON line (each with the path it launched on and
+9. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path, the join
-   kernels on ``spmd``, ``serve``, ``horizontal``, ``shape`` and
-   ``warp``), the card line, and last the result.
+   kernels on ``spmd``, ``serve``, ``adaptive``, ``horizontal``,
+   ``shape`` and ``warp``), the card line, and last the result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import subprocess
@@ -1795,6 +1817,568 @@ def ledger_phase(card: str) -> None:
 
 
 # ----------------------------------------------------------------------
+# The JAX package's seeded online benches (benchmarks/adaptive.py,
+# benchmarks/lifecycle.py) at their own size
+# ----------------------------------------------------------------------
+
+ONLINE_BUDGET = 4_000_000           # bench_adaptive's migration budget
+# the JAX package's values of both benches, on the CPU with 4 host
+# devices (bench_lifecycle's comm_bytes: the SPMD ledger of its stream)
+ONLINE_REFERENCE = {
+    "adaptive": {"static_comm_bytes": 1_810_048,
+                 "static_after_drift": 1_502_860,
+                 "adaptive_comm_bytes": 946_336,
+                 "adaptive_after_drift": 639_148,
+                 "repartitions": 3, "moved_bytes": 289_872,
+                 "wins_after_drift": 1, "stationary_repartitions": 0},
+    "lifecycle": {"queries": 400, "errors": 0, "repartitions": 1,
+                  "store_swaps": 1, "comm_bytes": 5_249_355,
+                  "shipped_bytes": 4_344, "whole_fragment_bytes": 74_712,
+                  "unassigned": 0}}
+
+
+def online_bench_runs(core, online, **device_kw) -> Dict[str, dict]:
+    """``bench_adaptive`` and ``bench_lifecycle`` through ``core``'s
+    ``Session`` and ``online``'s ``AdaptiveEngine`` / ``ingest_delta``
+    (this port's packages, or any with the same API; ``device_kw`` goes
+    to every engine).  ``bench_adaptive``: ``generate_watdiv(20_000,
+    seed=5)``, 8 sites, a 1,000-query uniform design workload, a
+    uniform -> star-heavy -> chain-heavy stream of 1,700 queries through
+    a static and an adaptive session (local data plane, epochs of 150,
+    a 4,000,000-byte budget), then a stationary stream of 900.
+    ``bench_lifecycle``: ``generate_watdiv(5_000, seed=3)``, 4 sites,
+    400 queries through an ``AdaptiveEngine`` on the SPMD data plane
+    (epochs of 100, a 2,000,000-byte budget), then a seeded delta of
+    200 added and 100 removed triples through ``ingest_delta``.
+    Returns both benches' numbers under ``ONLINE_REFERENCE``'s keys."""
+    g = core.generate_watdiv(20_000, seed=5)
+    cfg = core.PartitionConfig(kind="vertical", num_sites=8)
+    drift_point = 300
+    plan = core.build_plan(
+        g, core.generate_drifting_workload(g, [(1_000, {})], seed=11), cfg)
+    stream = core.generate_drifting_workload(
+        g, [(drift_point, {}), (700, {"S": 12.0}), (700, {"L": 12.0})],
+        seed=23).queries
+
+    def adaptive_engine(p):
+        return core.Session(p, backend="adaptive", **device_kw,
+                            adaptive_config=online.AdaptiveConfig(
+                                epoch_len=150,
+                                migration_budget_bytes=ONLINE_BUDGET)
+                            ).engine
+
+    def replay(engine, queries):
+        return [r.stats.comm_bytes for r in engine.execute_many(queries)]
+
+    static = replay(core.Session(plan, backend="local", **device_kw),
+                    stream)
+    eng = adaptive_engine(plan)
+    adaptive = replay(eng, stream)
+    control = adaptive_engine(plan)
+    replay(control, core.generate_drifting_workload(
+        g, [(900, {})], seed=31).queries)
+    out = {"adaptive": {
+        "static_comm_bytes": int(np.sum(static)),
+        "static_after_drift": int(np.sum(static[drift_point:])),
+        "adaptive_comm_bytes": int(np.sum(adaptive)),
+        "adaptive_after_drift": int(np.sum(adaptive[drift_point:])),
+        "repartitions": eng.num_repartitions,
+        "moved_bytes": int(eng.total_moved_bytes),
+        "wins_after_drift": int(np.sum(adaptive[drift_point:])
+                                < np.sum(static[drift_point:])),
+        "stationary_repartitions": control.num_repartitions}}
+
+    g = core.generate_watdiv(5_000, seed=3)
+    plan = core.build_plan(
+        g, core.generate_drifting_workload(g, [(400, {})], seed=11),
+        core.PartitionConfig(kind="vertical", num_sites=4))
+    eng = online.AdaptiveEngine(plan, online.AdaptiveConfig(
+        epoch_len=100, serve_backend="spmd",
+        migration_budget_bytes=2_000_000), **device_kw)
+    stream = core.generate_drifting_workload(
+        g, [(100, {}), (300, {"S": 12.0})], seed=23).queries
+    errors = 0
+    for q in stream:
+        try:
+            eng.execute(q)
+        except Exception:  # noqa: BLE001 -- the bench counts failures
+            errors += 1
+    rng = np.random.default_rng(7)
+    n_add, n_rem = 200, 100
+    add = np.stack([rng.integers(0, g.num_vertices, n_add),
+                    rng.integers(0, g.num_properties, n_add),
+                    rng.integers(0, g.num_vertices, n_add)], axis=1)
+    rem_idx = rng.choice(g.num_edges, n_rem, replace=False)
+    rem = np.stack([g.s[rem_idx], g.p[rem_idx], g.o[rem_idx]], axis=1)
+    dp = online.ingest_delta(
+        plan, g.apply_delta(added_edges=add, removed_edges=rem),
+        budget_bytes=10**7)
+    out["lifecycle"] = {
+        "queries": len(stream), "errors": errors,
+        "repartitions": eng.num_repartitions,
+        "store_swaps": eng.engine.store_generation,
+        "comm_bytes": int(eng.engine.stats().comm_bytes),
+        "shipped_bytes": int(dp.shipped_bytes),
+        "whole_fragment_bytes": int(dp.whole_bytes),
+        "unassigned": int(dp.unassigned)}
+    return out
+
+
+# ----------------------------------------------------------------------
+# Adaptive phase: the online loop on the smoke's plan
+# ----------------------------------------------------------------------
+
+ADAPTIVE_EPOCH = 100
+ADAPTIVE_BUDGET = 9_000_000      # about 10% of the graph's 12-byte edges
+ADAPTIVE_PHASES = [(200, {}), (400, {"S": 12.0})]   # uniform, star-heavy
+ADAPTIVE_SEED = 23
+TRACE_EVERY = 10                 # every 10th query of the stream traced
+DELTA_ADD, DELTA_REMOVE, DELTA_SEED = 20_000, 10_000, 7
+
+
+def adaptive_stream(graph) -> list:
+    """``generate_drifting_workload`` of ``ADAPTIVE_PHASES``, every
+    template query bound to a data constant, without the templates
+    ``served_queries`` leaves out."""
+    from repro_torch.core import generate_drifting_workload
+    wl = generate_drifting_workload(graph, ADAPTIVE_PHASES,
+                                    seed=ADAPTIVE_SEED, constant_fraction=1.0)
+    return [q for q, t in zip(wl.queries, wl.template_ids)
+            if t not in UNSERVED_TEMPLATES]
+
+
+class StepTimer:
+    """Seconds per named step, summed over calls of wrapped functions."""
+
+    def __init__(self):
+        self.secs: Dict[str, float] = {}
+
+    def wrap(self, step: str, fn: Callable) -> Callable:
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.secs[step] = (self.secs.get(step, 0.0)
+                                   + time.perf_counter() - t0)
+        return timed
+
+    def take(self) -> Dict[str, float]:
+        out, self.secs = self.secs, {}
+        return out
+
+
+def _pcts(lat: List[float]) -> str:
+    if not lat:
+        return "no queries"
+    ms = np.asarray(lat) * 1e3
+    return (f"{len(lat)} queries in {sum(lat):.2f} s, qps="
+            f"{len(lat) / sum(lat):.3f}, p50_ms={np.percentile(ms, 50):.2f}, "
+            f"p99_ms={np.percentile(ms, 99):.2f}")
+
+
+def _plain_answers(engine, queries) -> list:
+    """Answer rows of ``queries`` on ``engine`` with the match loop's
+    kernel wrappers replaced by their plain versions; no kernel may
+    launch meanwhile."""
+    from unittest import mock
+
+    from repro_torch.core import spmd as spmd_module
+    from repro_torch.kernels import ops, ref
+    before = dict(ops.LAUNCHES)
+    with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
+                             pair_semijoin_runs=ref.pair_semijoin_runs_ref,
+                             dedup_rows_masked=ref.dedup_rows_masked_ref,
+                             fused_join_sites=ref.fused_join_sites_ref):
+        out = [answer_rows(engine.execute(q).bindings) for q in queries]
+    if dict(ops.LAUNCHES) != before:
+        fail(f"kernels launched in a plain run: {before} -> {ops.LAUNCHES}")
+    return out
+
+
+def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
+    """Part 1: the drifting stream through ``Session(plan,
+    backend="adaptive")`` on the SPMD data plane.  Prints a line per
+    epoch and the serve before and after the first swap; holds every
+    answer to a static session of ``plan`` on the plain versions, the
+    budget, the realized plans, the engine's identity across swaps, the
+    kernels' launches on both store generations and the trace<->ledger
+    delta of every ``TRACE_EVERY``-th query.  Returns the adaptive
+    engine and the stream's launches."""
+    from repro_torch.core import Session
+    from repro_torch.core import plan as plan_module
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.online import AdaptiveConfig
+    from repro_torch.online import loop as loop_module
+    # the package exports the function ``refragment`` under the
+    # module's name
+    refrag_module = importlib.import_module("repro_torch.online.refragment")
+
+    queries = adaptive_stream(graph)
+    # WatDiv's templates close no cycle, so the stream alone never runs
+    # the cycle-close kernels (pair_semijoin, dedup_rows): the star,
+    # chain and cycle of served_queries run on the data plane itself
+    # (outside the monitored stream) before it and after it
+    shapes = served_queries(graph)[SERVED:]
+    t0 = time.perf_counter()
+    session = Session(plan, backend="adaptive", device=dev,
+                      adaptive_config=AdaptiveConfig(
+                          epoch_len=ADAPTIVE_EPOCH, serve_backend="spmd",
+                          migration_budget_bytes=ADAPTIVE_BUDGET))
+    eng = session.engine
+    spmd = eng.engine
+    spmd.max_capacity = MAX_CAPACITY
+    print(f"adaptive ({card}): engine in {time.perf_counter() - t0:.1f} s; "
+          f"stream of {len(queries)} queries (phases {ADAPTIVE_PHASES}, "
+          f"seed {ADAPTIVE_SEED}, epochs of {ADAPTIVE_EPOCH}, budget "
+          f"{ADAPTIVE_BUDGET} bytes)", flush=True)
+
+    timer = StepTimer()
+    reparts: Dict[int, dict] = {}
+    swaps: List[dict] = []
+    results: Dict[str, object] = {}
+    refragment = loop_module.refragment
+    repartition = eng._repartition
+    swap_store = spmd.swap_store
+    dictionary = loop_module.DataDictionary
+
+    def timed_refragment(*a, **kw):
+        results["res"] = refragment(*a, **kw)
+        return results["res"]
+
+    def checked_repartition():
+        timer.take()
+        mig = repartition()
+        res = results.pop("res")
+        split = timer.take()
+        split["fragment"] = split.get("fragment", 0.0)
+        split["other"] = res.elapsed_sec - sum(
+            v for k, v in split.items() if k != "dictionary")
+        if not eng.alloc.is_partition(len(eng.frag.fragments)):
+            fail(f"epoch {eng.epoch}: the realized allocation is not a "
+                 f"partition")
+        if not eng.frag.coverage_ok(graph):
+            fail(f"epoch {eng.epoch}: the new fragmentation does not "
+                 f"cover the graph")
+        reparts[eng.epoch] = {
+            "secs": res.elapsed_sec, "split": split, "mig": mig,
+            "fragments": len(res.frag.fragments),
+            "kept": res.num_incumbents_kept,
+            "deferred_bytes": sum(m.nbytes for m in mig.deferred),
+            "mandatory_bytes": sum(m.nbytes for m in mig.applied
+                                   if m.mandatory)}
+        return mig
+
+    def timed_swap(*a, **kw):
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        gen = swap_store(*a, **kw)
+        torch.cuda.synchronize()
+        swaps.append({"s": time.perf_counter() - t, "launches": before,
+                      "gen": gen, "mem": mem,
+                      "rows": spmd.store.prop_dev_rows.sum(1).tolist()})
+        return gen
+
+    tracer = Tracer(enabled=False, capacity=64)
+    eng.set_tracer(tracer)
+    eng._repartition = checked_repartition
+    spmd.swap_store = timed_swap
+    hooks = {"vertical": timer.wrap(
+        "fragment", plan_module.STRATEGIES.get_refragment("vertical"))}
+    patches = [(loop_module, "refragment", timed_refragment),
+               (loop_module, "DataDictionary", type(
+                   "TimedDictionary", (), {"build": staticmethod(
+                       timer.wrap("dictionary", dictionary.build))})),
+               (refrag_module, "warm_mine",
+                timer.wrap("mine", refrag_module.warm_mine))]
+    patches += [(refrag_module, name,
+                 timer.wrap("select", getattr(refrag_module, name)))
+                for name in ("usage_matrix", "match_edge_ids",
+                             "select_patterns")]
+    patches += [(refrag_module, name,
+                 timer.wrap("allocate", getattr(refrag_module, name)))
+                for name in ("allocate_fragments", "plan_replication")]
+    from unittest import mock
+    lat = {"before": [], "after": [], "swapping": []}
+    answers = []
+    traced = {0: 0, 1: 0}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def run_shapes() -> list:
+        # the monitor's hook is off meanwhile: the stream it sees is the
+        # drifting workload alone
+        hooks = list(spmd.post_execute_hooks)
+        spmd.post_execute_hooks.clear()
+        try:
+            return [answer_rows(spmd.execute(q).bindings) for q in shapes]
+        finally:
+            spmd.post_execute_hooks.extend(hooks)
+
+    shape_answers = run_shapes()
+    t_stream = time.perf_counter()
+    with mock.patch.dict(plan_module.STRATEGIES._refragmenters, hooks):
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in patches:
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            for i, q in enumerate(queries):
+                gen = spmd.store_generation
+                trace = i % TRACE_EVERY == 0
+                if trace:
+                    before = spmd.stats()
+                    tracer.enabled = True
+                t = time.perf_counter()
+                r = eng.execute(q)
+                secs = time.perf_counter() - t
+                tracer.enabled = False
+                answers.append(answer_rows(r.bindings))
+                if trace:
+                    _reconcile(tracer.store.spans()[-1:], spmd,
+                               before.comm_bytes, before.extra,
+                               f"adaptive stream, query {i}")
+                    traced[min(gen, 1)] += 1
+                lat["swapping" if spmd.store_generation != gen
+                    else "after" if gen else "before"].append(secs)
+    t_stream = time.perf_counter() - t_stream
+    shape_answers += run_shapes()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    eng._repartition = repartition
+    spmd.swap_store = swap_store
+
+    for ep in eng.epochs:
+        d = ep.drift
+        line = (f"epoch {ep.epoch} ({card}): {ep.queries} queries, "
+                f"comm_bytes={ep.comm_bytes}, ")
+        line += ("drift not checked (cooldown)" if d is None else
+                 f"drift tv={d.tv_distance:.4f} coverage_loss="
+                 f"{d.ref_coverage - d.coverage:.4f} fired={d.fired}"
+                 + (f" ({d.reason})" if d.reason else ""))
+        rp = reparts.get(ep.epoch)
+        if rp is not None:
+            sw = swaps[len([e for e in reparts if e <= ep.epoch]) - 1]
+            line += (f"; moved_bytes={ep.moved_bytes} (mandatory "
+                     f"{rp['mandatory_bytes']}) deferred_bytes="
+                     f"{rp['deferred_bytes']} ({ep.deferred_moves} moves) "
+                     f"makespan={ep.migration_makespan_sec:.6f} s; "
+                     f"refragment {rp['secs']:.1f} s ("
+                     + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                 sorted(rp["split"].items()))
+                     + f"), {rp['fragments']} fragments, {rp['kept']} "
+                     f"incumbents kept; swap_store {sw['s']:.1f} s, store "
+                     f"generation {sw['gen']}, resident rows per site "
+                     f"{sw['rows']}")
+        print(line, flush=True)
+    print(f"adaptive serve ({card}): {len(queries)} queries in "
+          f"{t_stream:.1f} s; before the swap {_pcts(lat['before'])}; "
+          f"after {_pcts(lat['after'])}; {len(lat['swapping'])} queries "
+          f"closed an epoch with a re-partition "
+          f"({sum(lat['swapping']):.1f} s)", flush=True)
+    if not swaps:
+        fail("adaptive: drift never fired a re-partition")
+    first = swaps[0]["launches"]
+    after = {k: launches[k] - first[k] for k in launches}
+    print(f"launches on the adaptive stream and the shape queries before "
+          f"and after it: before the first swap "
+          f"{first}, after it {after}; max_memory_allocated={peak} bytes "
+          f"({card})", flush=True)
+
+    # the checks
+    fired = sum(1 for ep in eng.epochs if ep.drift and ep.drift.fired)
+    if fired < 1 or eng.num_repartitions < 1:
+        fail(f"adaptive: drift fired {fired} times, "
+             f"{eng.num_repartitions} re-partitions")
+    # the budget bounds what an epoch ships beyond its mandatory
+    # materializations (fragments of newly selected patterns, which the
+    # planner ships whatever the budget: deferring them would strand
+    # them, online/migration.py); an epoch over the budget is printed
+    over = [ep.epoch for ep in eng.epochs if ep.moved_bytes
+            - reparts.get(ep.epoch, {}).get("mandatory_bytes", 0)
+            > max(ADAPTIVE_BUDGET
+                  - reparts.get(ep.epoch, {}).get("mandatory_bytes", 0), 0)]
+    if over:
+        fail(f"adaptive: epochs {over} moved optional bytes past the "
+             f"{ADAPTIVE_BUDGET}-byte budget")
+    print("adaptive budget: " + "; ".join(
+        f"epoch {e}: moved {eng.epochs[e].moved_bytes} bytes, mandatory "
+        f"{rp['mandatory_bytes']}, "
+        + ("within" if eng.epochs[e].moved_bytes <= ADAPTIVE_BUDGET
+           else "over") + f" the {ADAPTIVE_BUDGET}-byte budget"
+        for e, rp in sorted(reparts.items())), flush=True)
+    st = spmd.stats()
+    if eng.engine is not spmd or int(st.extra["store_swaps"]) != \
+            spmd.store_generation or spmd.store_generation != \
+            eng.num_repartitions:
+        fail(f"adaptive: engine swapped or counts differ (store_swaps "
+             f"{st.extra['store_swaps']}, generation "
+             f"{spmd.store_generation}, re-partitions "
+             f"{eng.num_repartitions})")
+    for name, counts in (("before", first), ("after", after)):
+        missing = [k for k in JOIN_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"adaptive: kernels never launched {name} the swap: "
+                 f"{missing}")
+    if min(traced.values()) < 1:
+        fail(f"adaptive: traced queries per store generation {traced}")
+    print(f"trace<->ledger on the adaptive stream ({card}): delta 0 on "
+          f"{traced[0]} traced queries of generation 0 and {traced[1]} of "
+          f"later generations", flush=True)
+
+    static = Session(plan, backend="spmd", device=dev,
+                     spmd_max_capacity=MAX_CAPACITY)
+    t0 = time.perf_counter()
+    checked = queries + shapes + shapes
+    want = _plain_answers(static.engine, queries + shapes)
+    for i, (a, b) in enumerate(zip(answers + shape_answers,
+                                   want + want[len(queries):])):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"adaptive stream, query {i} {checked[i].edges}: "
+                 f"{a.shape[0]} rows, {b.shape[0]} on a static session "
+                 f"on the plain versions")
+    print(f"adaptive: {len(checked)} answer sets (the stream, the shape "
+          f"queries before and after it) equal a static session "
+          f"of the original plan on the plain versions "
+          f"({time.perf_counter() - t0:.1f} s, {card})", flush=True)
+    del static
+    torch.cuda.empty_cache()
+    return eng, launches
+
+
+def repository_phase(plan, eng, card: str) -> None:
+    """Part 3: the original and the adapted plan (with the monitor's
+    state) through a ``PlanRepository`` at full size, under the
+    checkout's ``build/``."""
+    import shutil
+
+    from repro_torch.online import PlanRepository
+    root = ROOT / "build" / "plan_repository"
+    shutil.rmtree(root, ignore_errors=True)
+    repo = PlanRepository(root)
+    t0 = time.perf_counter()
+    v0 = repo.publish(plan, reason="vertical build")
+    v1 = repo.publish(eng.plan, monitor=eng.monitor,
+                      reason=f"{eng.num_repartitions} re-partitions")
+    t_save = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+    t0 = time.perf_counter()
+    latest = repo.load_latest(eng.graph)
+    t_load = time.perf_counter() - t0
+    mon = repo.load_monitor(v1)
+    prov = repo.provenance(v1)
+    if latest != eng.plan or prov["parent"] != v0 or repo.versions() != \
+            [v0, v1]:
+        fail(f"plan repository: the latest version differs from the "
+             f"adapted plan or provenance does not chain ({prov})")
+    if not np.array_equal(mon.snapshot()[1], eng.monitor.snapshot()[1]):
+        fail("plan repository: the monitor did not resume")
+    print(f"plan repository ({card}): versions {repo.versions()} saved in "
+          f"{t_save:.1f} s, {nbytes} bytes on disk; the latest loaded in "
+          f"{t_load:.1f} s, equal to the adapted plan; provenance "
+          f"{v1} <- {prov['parent']}; monitor resumed", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def delta_phase(graph, eng, card: str, dev: str = "cuda") -> Dict[str, int]:
+    """Part 4: a seeded delta of ``DELTA_ADD`` added and
+    ``DELTA_REMOVE`` removed triples through ``ingest_delta`` on the
+    adapted plan, hot-swapped into the same SPMD engine with the new
+    graph; the served queries on it against the plain versions on the
+    same engine and, for some, ``match_pattern`` on the new graph.
+    Returns the launches of the serve."""
+    from repro_torch.core import match_pattern
+    from repro_torch.kernels import ops
+    from repro_torch.online import ingest_delta
+    rng = np.random.default_rng(DELTA_SEED)
+    add = np.stack([rng.integers(0, graph.num_vertices, DELTA_ADD),
+                    rng.integers(0, graph.num_properties, DELTA_ADD),
+                    rng.integers(0, graph.num_vertices, DELTA_ADD)], 1)
+    rem_idx = rng.choice(graph.num_edges, DELTA_REMOVE, replace=False)
+    rem = np.stack([graph.s[rem_idx], graph.p[rem_idx], graph.o[rem_idx]], 1)
+    t0 = time.perf_counter()
+    g2 = graph.apply_delta(added_edges=add, removed_edges=rem)
+    t_apply = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = ingest_delta(eng.plan, g2, budget_bytes=ADAPTIVE_BUDGET)
+    t_ingest = time.perf_counter() - t0
+    spmd = eng.engine
+    t_swap = host_s(lambda: spmd.swap_store(
+        dp.plan.site_edge_ids(), replicated_props=set(
+            dp.plan.replicated_props), graph=g2))
+    print(f"graph delta ({card}): {g2.num_edges} triples after "
+          f"+{dp.added_edges} / -{dp.removed_edges} ({t_apply:.1f} s); "
+          f"ingest_delta {t_ingest:.1f} s, {len(dp.deltas)} fragments "
+          f"touched, shipped {dp.shipped_bytes} bytes against "
+          f"{dp.whole_bytes} whole-fragment bytes (ratio "
+          f"{dp.shipped_bytes / max(dp.whole_bytes, 1):.4f}), unassigned "
+          f"{dp.unassigned}, within budget {dp.within_budget()}; swap_store "
+          f"{t_swap:.1f} s, store generation {spmd.store_generation}",
+          flush=True)
+    if dp.unassigned or dp.shipped_bytes >= dp.whole_bytes \
+            or not dp.plan.frag.coverage_ok(g2):
+        fail("graph delta: unassigned edges, no saving over whole "
+             "fragments, or the new graph not covered")
+    queries = served_queries(graph)
+    ops.reset_launches()
+    got = [answer_rows(spmd.execute(q).bindings) for q in queries]
+    launches = dict(ops.LAUNCHES)
+    want = _plain_answers(spmd, queries)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"graph delta, query {i}: {a.shape[0]} rows on the "
+                 f"kernels, {b.shape[0]} on the plain versions")
+    checked = list(range(HOST_CHECKED)) + list(range(SERVED, len(queries)))
+    for i in checked:
+        m = match_pattern(g2, queries[i], max_rows=1 << 40)
+        if not np.array_equal(answer_rows(m.columns), got[i]):
+            fail(f"graph delta, query {i}: answer set differs from "
+                 f"match_pattern on the new graph")
+    print(f"graph delta: {len(queries)} served queries equal the plain "
+          f"versions, {len(checked)} equal match_pattern on the new graph; "
+          f"launches {launches} ({card})", flush=True)
+    missing = [k for k in JOIN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"graph delta: kernels never launched: {missing}")
+    return launches
+
+
+def online_phase(card: str, dev: str = "cuda") -> None:
+    """Part 2: the JAX package's online benches at their own size, held
+    to its values."""
+    import repro_torch.core as core
+    import repro_torch.online as online
+    t0 = time.perf_counter()
+    runs = online_bench_runs(core, online, device=dev)
+    secs = time.perf_counter() - t0
+    for bench, got in runs.items():
+        print(f"online bench {bench} ({card}): "
+              + ", ".join(f"{k} {v} (JAX CPU {ONLINE_REFERENCE[bench][k]})"
+                          for k, v in got.items()), flush=True)
+    print(f"online benches in {secs:.1f} s ({card})", flush=True)
+    if runs != ONLINE_REFERENCE:
+        fail(f"online benches differ from the JAX package's: {runs}")
+
+
+def adaptive_phase(graph, plan, card: str, dev: str = "cuda"
+                   ) -> Dict[str, int]:
+    """The online adaptive loop on the smoke's vertical plan (parts 1,
+    3 and 4) and the JAX package's online benches (part 2).  Returns
+    the launches of the adaptive stream."""
+    t0 = time.perf_counter()
+    eng, launches = adaptive_serve(graph, plan, card, dev)
+    online_phase(card, dev)
+    repository_phase(plan, eng, card)
+    delta_phase(graph, eng, card, dev)
+    print(f"adaptive phase: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
 # LM phase
 # ----------------------------------------------------------------------
 
@@ -2192,11 +2776,12 @@ def rdf_setup():
 def spmd_phase(card: str) -> Dict[str, dict]:
     """Phases 2 to 7: the WatDiv plan, the join kernels, the served
     queries (``execute``, its profile, then ``execute_many``), the
-    front door, the horizontal / SHAPE / WARP plans and the host
-    backends, then the seeded ledger comparisons.  Returns the records
-    of the kernels checked against the store, with their launches on
-    the ``execute`` serve (``spmd``), on the front door's served pass
-    (``serve``) and on each strategy's serve."""
+    front door, the online adaptive loop, the horizontal / SHAPE / WARP
+    plans and the host backends, then the seeded ledger comparisons.
+    Returns the records of the kernels checked against the store, with
+    their launches on the ``execute`` serve (``spmd``), on the front
+    door's served pass (``serve``), on the adaptive stream
+    (``adaptive``) and on each strategy's serve."""
     from repro_torch.core import Session
     graph, design, plan, session = rdf_setup()
     kernels = kernel_phase(session.engine.store)
@@ -2221,7 +2806,10 @@ def spmd_phase(card: str) -> Dict[str, dict]:
                if path == "spmd" and served[k] <= 0]
     if missing:
         fail(f"kernels never launched on the front-door serve: {missing}")
-    del session, plan
+    del session
+    torch.cuda.empty_cache()
+    adaptive = adaptive_phase(graph, plan, card)
+    del plan
     torch.cuda.empty_cache()
     strategies = strategies_phase(graph, design, queries, results, card)
     ledger_phase(card)
@@ -2229,6 +2817,7 @@ def spmd_phase(card: str) -> Dict[str, dict]:
         kernels[k]["launches"] = launches[k]
         if KERNELS[k][2] == "spmd":
             kernels[k]["paths"] = {"spmd": launches[k], "serve": served[k],
+                                   "adaptive": adaptive[k],
                                    **{kind: strategies[kind][k]
                                       for kind in STRATEGY_KINDS}}
     return kernels

@@ -15,10 +15,14 @@ Online, through ``Session`` over one ``Engine`` protocol:
     "spmd"      spmd.SpmdEngine                (the sites on one GPU)
     "local"     executor.DistributedEngine     (§7.2-7.3, Algorithms 3+4)
     "baseline"  baselines.BaselineEngine       (SHAPE/WARP model)
+    "adaptive"  online.AdaptiveEngine          (drift -> refragment ->
+                                               migrate, over "local" or
+                                               "spmd")
 """
 from .graph import RDFGraph, example_graph, generate_watdiv
 from .query import QueryGraph, find_embedding, is_subgraph_of
-from .workload import (Workload, class_template_probs, generate_workload,
+from .workload import (Workload, class_template_probs,
+                       generate_drifting_workload, generate_workload,
                        make_shape_queries, watdiv_templates)
 from .mining import FrequentPattern, frequent_properties, usage_matrix
 from .matching import match_pattern
@@ -41,12 +45,14 @@ from .plan import (PartitionConfig, PartitionPlan, STRATEGIES,
                    StrategyRegistry, build_plan, register_strategy)
 from .session import BACKENDS, Session
 from .spmd import SpmdEngine
+from .pipeline import WorkloadPartitioner
 
 __all__ = [
     "RDFGraph", "example_graph", "generate_watdiv",
     "QueryGraph", "is_subgraph_of", "find_embedding",
     "Workload", "generate_workload", "watdiv_templates",
-    "class_template_probs", "make_shape_queries",
+    "class_template_probs", "generate_drifting_workload",
+    "make_shape_queries",
     "FrequentPattern", "frequent_properties", "usage_matrix",
     "match_pattern", "SelectionResult", "select_patterns",
     "Fragment", "Fragmentation", "build_fragmentation",
@@ -62,5 +68,5 @@ __all__ = [
     "Engine", "EngineBase", "EngineStats",
     "PartitionConfig", "PartitionPlan", "build_plan", "STRATEGIES",
     "StrategyRegistry", "register_strategy", "BACKENDS", "Session",
-    "SpmdEngine",
+    "SpmdEngine", "WorkloadPartitioner",
 ]

@@ -131,6 +131,69 @@ class RDFGraph:
             vertex_names=self.vertex_names, property_names=self.property_names,
         )
 
+    # ------------------------------------------------------------------
+    def apply_delta(self, added_edges: Optional[Sequence] = None,
+                    removed_edges: Optional[Sequence] = None) -> "RDFGraph":
+        """Return a new graph with ``removed_edges`` dropped and
+        ``added_edges`` appended (streaming ingestion, RDF set
+        semantics).
+
+        Both arguments are (s, p, o) triples -- any array-like of shape
+        (n, 3).  Removals match by value; triples not present are
+        ignored.  Additions are deduped against the survivors and each
+        other (a graph is a *set* of triples) and appended after all
+        surviving edges, so surviving edges keep their relative order
+        and added edges occupy the id tail -- the property the delta
+        fragment materializer relies on.  The vertex id space grows to
+        cover new ids; property ids must already be in range (the
+        property universe is plan state, not delta state).
+        """
+        def _cols(edges):
+            arr = np.asarray(edges, dtype=np.int64)
+            if arr.size == 0:
+                return (np.empty(0, np.int64),) * 3
+            arr = arr.reshape(-1, 3)
+            return arr[:, 0], arr[:, 1], arr[:, 2]
+
+        a_s, a_p, a_o = _cols(added_edges if added_edges is not None else [])
+        r_s, r_p, r_o = _cols(removed_edges if removed_edges is not None
+                              else [])
+        if a_p.size and (a_p.min() < 0 or a_p.max() >= self.num_properties):
+            raise ValueError(
+                f"added property ids must lie in [0, "
+                f"{self.num_properties - 1}]: the property universe is "
+                f"fixed plan state (got range [{int(a_p.min())}, "
+                f"{int(a_p.max())}])")
+        num_vertices = self.num_vertices
+        for col in (a_s, a_o):
+            if col.size:
+                num_vertices = max(num_vertices, int(col.max()) + 1)
+
+        base = np.int64(num_vertices + 1)
+
+        def _key(s, p, o):
+            return (np.asarray(p, np.int64) * base
+                    + np.asarray(s, np.int64)) * base + np.asarray(o,
+                                                                   np.int64)
+
+        keep = np.ones(self.num_edges, dtype=bool)
+        if r_s.size:
+            keep &= ~np.isin(_key(self.s, self.p, self.o),
+                             _key(r_s, r_p, r_o))
+        s, p, o = self.s[keep], self.p[keep], self.o[keep]
+        if a_s.size:
+            akey = _key(a_s, a_p, a_o)
+            _, first = np.unique(akey, return_index=True)
+            first.sort()
+            fresh = ~np.isin(akey[first], _key(s, p, o))
+            first = first[fresh]
+            s = np.concatenate([s, a_s[first].astype(np.int32)])
+            p = np.concatenate([p, a_p[first].astype(np.int32)])
+            o = np.concatenate([o, a_o[first].astype(np.int32)])
+        return RDFGraph(s, p, o, num_vertices, self.num_properties,
+                        self.vertex_names, self.property_names)
+
+
 # ======================================================================
 # Dataset generators
 # ======================================================================

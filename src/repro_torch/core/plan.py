@@ -7,19 +7,26 @@ strategy.
   (the paper's §5), ``"shape"`` / ``"warp"`` (the §8 baselines) -- and
   returns a ``PartitionPlan`` bundling fragmentation, allocation, data
   dictionary, selected FAPs, the design workload and the config.
+* ``PartitionPlan.save()`` / ``PartitionPlan.load()`` round-trip the
+  plan through ``repro_torch.checkpoint`` (npy-per-leaf + a
+  ``plan.json`` manifest) in the JAX package's format, so a plan saved
+  by either package loads in the other and compares equal.
+* ``build_plan(..., incumbent=plan)`` warm-starts from an incumbent's
+  FAP set through ``repro_torch.online.refragment``.
 * New strategies are one ``@register_strategy("name")`` away; config
   validation lists whatever is registered.
 
 Engines are *built from* plans (``build_local_engine`` etc. -- the
 ``Session`` facade picks per backend); a plan itself holds no device
 state.  Host-side planning is numpy, exactly as in the reference, so
-the same seeds give the same plan.  Plan save/load and the warm start
-from an incumbent plan are not ported yet.
+the same seeds give the same plan.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -33,7 +40,8 @@ from .baselines import (BaselineEngine, BaselineFragmentation,
                         shape_fragmentation, warp_fragmentation)
 from .dictionary import DataDictionary
 from .executor import CostModel, DistributedEngine
-from .fragmentation import (Fragmentation, build_fragmentation,
+from .fragmentation import (Fragment, Fragmentation, MintermPredicate,
+                            SimplePredicate, build_fragmentation,
                             horizontal_fragmentation,
                             vertical_fragmentation)
 from .graph import RDFGraph
@@ -43,6 +51,8 @@ from .mining import (FrequentPattern, frequent_properties,
 from .query import QueryGraph
 from .selection import SelectionResult, select_patterns
 from .workload import Workload
+
+PLAN_FORMAT_VERSION = 1
 
 
 # ----------------------------------------------------------------------
@@ -58,8 +68,9 @@ class StrategyRegistry:
     ``hook(graph, selected, sample, config, cold_ids, index)`` ->
     ``Fragmentation``, where ``sample`` is a raw-query reservoir
     (minterm predicate mining, §5.2) and ``index`` a shared
-    ``_PropIndex``.  The online loop that calls the hooks is not ported
-    yet; the hooks are.
+    ``_PropIndex``.  ``online.refragment`` dispatches through the hook
+    table instead of hardcoding kinds, so a newly registered
+    frag-bearing strategy joins the adaptive loop by registering both.
     """
 
     def __init__(self) -> None:
@@ -179,6 +190,65 @@ class OfflineStats:
 
 
 # ----------------------------------------------------------------------
+# Query (de)serialization helpers: flat int64 stream
+# [n_edges, s,d,p, s,d,p, ...] per query -- tiny, checkpoint-friendly.
+# ----------------------------------------------------------------------
+
+def encode_queries(queries: Sequence[QueryGraph]) -> np.ndarray:
+    """Flatten query graphs into the int64 stream format above."""
+    out: List[int] = []
+    for q in queries:
+        out.append(q.num_edges)
+        for e in q.edges:
+            out.extend((e.src, e.dst, e.prop))
+    return np.asarray(out, dtype=np.int64) if out else np.zeros(0, np.int64)
+
+
+def decode_queries(flat: np.ndarray) -> List[QueryGraph]:
+    """Inverse of ``encode_queries``."""
+    flat = np.asarray(flat, dtype=np.int64)
+    qs: List[QueryGraph] = []
+    i = 0
+    while i < len(flat):
+        n = int(flat[i])
+        i += 1
+        qs.append(QueryGraph.make(
+            [(int(flat[i + 3 * k]), int(flat[i + 3 * k + 1]),
+              int(flat[i + 3 * k + 2])) for k in range(n)]))
+        i += 3 * n
+    return qs
+
+
+def _minterm_to_json(mt: Optional[MintermPredicate]) -> Optional[dict]:
+    if mt is None:
+        return None
+    return {"pattern_idx": mt.pattern_idx,
+            "terms": [[t.var, t.value, bool(t.equal)] for t in mt.terms]}
+
+
+def _minterm_from_json(d: Optional[dict]) -> Optional[MintermPredicate]:
+    if d is None:
+        return None
+    return MintermPredicate(int(d["pattern_idx"]), tuple(
+        SimplePredicate(int(v), int(val), bool(eq))
+        for v, val, eq in d["terms"]))
+
+
+def _graph_signature(graph: RDFGraph) -> Dict[str, int]:
+    """Size counts + a content checksum of the triple arrays: fragment
+    edge ids index into the graph, so size-equal but different graphs
+    must be rejected at load time."""
+    import zlib
+    crc = 0
+    for a in (graph.s, graph.p, graph.o):
+        crc = zlib.crc32(np.ascontiguousarray(a, np.int32).tobytes(), crc)
+    return {"num_edges": graph.num_edges,
+            "num_vertices": graph.num_vertices,
+            "num_properties": graph.num_properties,
+            "triples_crc32": int(crc)}
+
+
+# ----------------------------------------------------------------------
 # The plan artifact
 # ----------------------------------------------------------------------
 
@@ -186,9 +256,10 @@ class OfflineStats:
 class PartitionPlan:
     """Fragmentation + allocation + dictionary + selected FAPs + config
     provenance, detached from any engine.  ``graph`` is a runtime
-    attachment: fragments store edge ids *into* it.  SHAPE and WARP
-    plans hold ``baseline_frag`` (edge ids per site) instead of
-    ``frag`` / ``alloc`` / ``dictionary``."""
+    attachment: fragments store edge ids *into* it; ``save()`` records
+    only its signature and ``load()`` re-attaches and validates.  SHAPE
+    and WARP plans hold ``baseline_frag`` (edge ids per site) instead
+    of ``frag`` / ``alloc`` / ``dictionary``."""
 
     strategy: str
     config: PartitionConfig
@@ -208,7 +279,7 @@ class PartitionPlan:
     # properties replicated to every site by the budgeted replication
     # pass (their join steps are shard-complete under SPMD serving);
     # ``replication`` is the pass's full provenance (ranking, costs,
-    # spend)
+    # spend) and round-trips through save()/load()
     replicated_props: Set[int] = dataclasses.field(default_factory=set)
     replication: Optional[ReplicationPlan] = None
 
@@ -359,6 +430,182 @@ class PartitionPlan:
                           comm_plan=comm_plan,
                           replicated_props=set(self.replicated_props),
                           routing=routing)
+
+    # -- serialization (built on repro_torch.checkpoint) --------------
+    def save(self, path) -> Path:
+        """Write the plan under ``path/`` (``plan.json`` + an npy-per-leaf
+        checkpoint).  The graph itself is NOT stored -- only its
+        signature, validated on load."""
+        if self.graph is None:
+            raise RuntimeError("plan has no attached graph to sign")
+        from ..checkpoint.ckpt import save_checkpoint
+        path = Path(path)
+        arrays: Dict[str, np.ndarray] = {}
+        meta: Dict[str, object] = {
+            "format": PLAN_FORMAT_VERSION,
+            "strategy": self.strategy,
+            "config": dataclasses.asdict(self.config),
+            "graph_signature": _graph_signature(self.graph),
+            "patterns": [encode_queries([p]).tolist()
+                         for p in self.selected_patterns],
+            "stats": (dataclasses.asdict(self.stats)
+                      if self.stats is not None else None),
+        }
+        arrays["cold_props"] = np.asarray(sorted(self.cold_props), np.int64)
+        arrays["replicated_props"] = np.asarray(
+            sorted(self.replicated_props), np.int64)
+        if self.replication is not None:
+            meta["replication"] = {
+                "props": [int(p) for p in self.replication.props],
+                "budget_bytes": self.replication.budget_bytes,
+                "spent_bytes": self.replication.spent_bytes,
+                "heat": {str(p): h
+                         for p, h in self.replication.heat.items()},
+                "cost_bytes": {str(p): c
+                               for p, c in self.replication.cost_bytes
+                               .items()}}
+        if self.design_workload is not None:
+            arrays["design_workload"] = encode_queries(
+                self.design_workload.queries)
+        if self.frag is not None:
+            meta["fragments"] = [
+                {"pattern_idx": f.pattern_idx, "card": f.card,
+                 "kind": f.kind, "minterm": _minterm_to_json(f.minterm)}
+                for f in self.frag.fragments]
+            meta["cold_fragments"] = [
+                {"kind": f.kind} for f in self.frag.cold_fragments]
+            for i, f in enumerate(self.frag.fragments):
+                arrays[f"frag_{i}"] = np.asarray(f.edge_ids, np.int64)
+            for i, f in enumerate(self.frag.cold_fragments):
+                arrays[f"cold_{i}"] = np.asarray(f.edge_ids, np.int64)
+        if self.alloc is not None:
+            arrays["site_of"] = np.asarray(self.alloc.site_of, np.int64)
+        if self.baseline_frag is not None:
+            meta["baseline"] = {
+                "name": self.baseline_frag.name,
+                "num_sites": len(self.baseline_frag.site_edges)}
+            for j, e in enumerate(self.baseline_frag.site_edges):
+                arrays[f"site_{j}"] = np.asarray(e, np.int64)
+        if self.sel_usage is not None:
+            arrays["sel_usage"] = np.asarray(self.sel_usage, np.float64)
+        if self.weights is not None:
+            arrays["weights"] = np.asarray(self.weights, np.int64)
+        meta["arrays"] = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                          for k, v in arrays.items()}
+        save_checkpoint(path, 0, arrays)
+        (path / "plan.json").write_text(json.dumps(meta, indent=1))
+        return path
+
+    @staticmethod
+    def load(path, graph: RDFGraph) -> "PartitionPlan":
+        """Rebuild a plan from ``save()`` output; ``graph`` must be the
+        graph the plan was built on (signature-checked).  The data
+        dictionary is rebuilt, so a loaded plan serves queries without
+        re-running the offline phase."""
+        from ..checkpoint.ckpt import load_checkpoint
+        path = Path(path)
+        meta = json.loads((path / "plan.json").read_text())
+        if meta.get("format") != PLAN_FORMAT_VERSION:
+            raise ValueError(f"unsupported plan format {meta.get('format')}")
+        sig = meta["graph_signature"]
+        got = _graph_signature(graph)
+        if sig != got:
+            raise ValueError(
+                f"plan was built on a different graph: saved signature "
+                f"{sig}, attached graph {got}")
+        like = {k: np.zeros(tuple(spec["shape"]), dtype=spec["dtype"])
+                for k, spec in meta["arrays"].items()}
+        raw = load_checkpoint(path, 0, like)
+        arrays = {k: np.asarray(raw[k]).astype(meta["arrays"][k]["dtype"])
+                  for k in like}
+        cfg = PartitionConfig(**meta["config"])
+        patterns = [decode_queries(np.asarray(flat, np.int64))[0]
+                    for flat in meta["patterns"]]
+        frag = alloc = dictionary = None
+        if "fragments" in meta:
+            frags = [Fragment(arrays[f"frag_{i}"], int(fm["pattern_idx"]),
+                              _minterm_from_json(fm["minterm"]),
+                              int(fm["card"]), fm["kind"])
+                     for i, fm in enumerate(meta["fragments"])]
+            cold = [Fragment(arrays[f"cold_{i}"], -1, None, 0, cm["kind"])
+                    for i, cm in enumerate(meta["cold_fragments"])]
+            frag = Fragmentation(frags, list(patterns), cfg.kind, cold)
+            alloc = Allocation(arrays["site_of"], cfg.num_sites)
+            dictionary = DataDictionary.build(graph, frag, alloc,
+                                              cfg.num_sites)
+        baseline = None
+        if "baseline" in meta:
+            b = meta["baseline"]
+            baseline = BaselineFragmentation(
+                [arrays[f"site_{j}"] for j in range(int(b["num_sites"]))],
+                b["name"])
+        stats = (OfflineStats(**meta["stats"])
+                 if meta.get("stats") is not None else None)
+        replication = None
+        if meta.get("replication") is not None:
+            r = meta["replication"]
+            replication = ReplicationPlan(
+                [int(p) for p in r["props"]],
+                {int(p): float(h) for p, h in r["heat"].items()},
+                {int(p): int(c) for p, c in r["cost_bytes"].items()},
+                int(r["budget_bytes"]), int(r["spent_bytes"]))
+        wl = (Workload(decode_queries(arrays["design_workload"]))
+              if "design_workload" in arrays else None)
+        return PartitionPlan(
+            strategy=meta["strategy"], config=cfg, graph=graph,
+            selected_patterns=patterns, frag=frag, alloc=alloc,
+            dictionary=dictionary,
+            cold_props=set(int(p) for p in arrays["cold_props"]),
+            baseline_frag=baseline, design_workload=wl,
+            sel_usage=arrays.get("sel_usage"), weights=arrays.get("weights"),
+            stats=stats,
+            # PR-4-era plans predate replication: missing field -> empty
+            replicated_props=set(
+                int(p) for p in arrays.get("replicated_props", ())),
+            replication=replication)
+
+    # -- equality (dtype-insensitive on arrays) --------------------------
+    def _state(self) -> Tuple:
+        def ai(a) -> Tuple:
+            a = np.asarray(a, np.int64)
+            return (a.shape, a.tobytes())
+
+        def af(a) -> Optional[Tuple]:
+            if a is None:
+                return None
+            a = np.asarray(a, np.float64)
+            return (a.shape, a.tobytes())
+
+        frag_state = None
+        if self.frag is not None:
+            frag_state = (
+                tuple((ai(f.edge_ids), f.pattern_idx, f.card, f.kind,
+                       _minterm_to_json(f.minterm) and
+                       json.dumps(_minterm_to_json(f.minterm)))
+                      for f in self.frag.fragments),
+                tuple((ai(f.edge_ids), f.kind)
+                      for f in self.frag.cold_fragments))
+        return (
+            self.strategy,
+            tuple(sorted(dataclasses.asdict(self.config).items())),
+            tuple(p.canonical_code() for p in self.selected_patterns),
+            frag_state,
+            ai(self.alloc.site_of) if self.alloc is not None else None,
+            tuple(sorted(self.cold_props)),
+            (self.baseline_frag.name,
+             tuple(ai(e) for e in self.baseline_frag.site_edges))
+            if self.baseline_frag is not None else None,
+            ai(encode_queries(self.design_workload.queries))
+            if self.design_workload is not None else None,
+            af(self.sel_usage),
+            ai(self.weights) if self.weights is not None else None,
+            tuple(sorted(self.replicated_props)),
+        )
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, PartitionPlan):
+            return NotImplemented
+        return self._state() == other._state()
 
 
 # ----------------------------------------------------------------------
@@ -569,21 +816,43 @@ def build_plan(graph: RDFGraph, workload: Workload,
             from.
         config: ``PartitionConfig`` (strategy kind, number of sites,
             mining/selection thresholds); defaults to vertical
-            fragmentation over 10 sites.
-        incumbent: an existing plan to warm-start from; the warm start
-            rides on the online loop, which is not ported yet.
+            fragmentation over 10 sites, or to the incumbent's config
+            when warm-starting.
+        incumbent: an existing plan to warm-start from.  Its selected
+            FAP set seeds mining/selection (``online.refragment``),
+            so patterns the previous plan materialized are retained
+            when they still pay for themselves on the new workload --
+            the lifecycle layer's successive-version path.
 
     Returns:
-        A ``PartitionPlan`` with the graph attached, ready to serve
-        through ``Session``.
+        A ``PartitionPlan`` with the graph attached -- ready to serve
+        through ``Session`` or to ``save()`` for later ``load()``.
 
     Raises:
-        ValueError: ``config.kind`` names no registered strategy.
-        NotImplementedError: ``incumbent`` is given.
+        ValueError: ``config.kind`` names no registered strategy (or,
+            when warm-starting, no refragment hook).
     """
-    if incumbent is not None:
-        raise NotImplementedError(
-            "build_plan(incumbent=...) warm-starts through the online "
-            "loop, which is not ported yet")
-    cfg = config or PartitionConfig()
-    return STRATEGIES.get(cfg.kind)(graph, workload, cfg)
+    if incumbent is None:
+        cfg = config or PartitionConfig()
+        return STRATEGIES.get(cfg.kind)(graph, workload, cfg)
+
+    cfg = config or incumbent.config
+    # warm start: replay the design workload through a monitor and run
+    # the incremental pipeline seeded with the incumbent's FAP set
+    # (lazy import -- core must not depend on online at module scope)
+    from ..online.monitor import WorkloadMonitor
+    from ..online.refragment import refragment
+    monitor = WorkloadMonitor(graph.num_properties)
+    monitor.bulk_load(workload)
+    res = refragment(graph, monitor, cfg, incumbent.selected_patterns)
+    dictionary = DataDictionary.build(graph, res.frag, res.desired_alloc,
+                                      cfg.num_sites)
+    repl = res.desired_replication
+    return PartitionPlan(
+        strategy=cfg.kind, config=cfg, graph=graph,
+        selected_patterns=res.selected_patterns, frag=res.frag,
+        alloc=res.desired_alloc, dictionary=dictionary,
+        cold_props=res.cold_props, design_workload=workload,
+        sel_usage=res.sel_usage, weights=res.weights,
+        replicated_props=(repl.prop_set if repl is not None else set()),
+        replication=repl)

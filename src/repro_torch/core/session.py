@@ -10,12 +10,17 @@ through the one ``Engine`` protocol:
 * ``"local"``    -- the paper's exact host ``DistributedEngine`` over
                     the fragment allocation (Algorithms 3+4);
 * ``"baseline"`` -- the gather-all ``BaselineEngine`` over the plan's
-                    per-site storage (the SHAPE/WARP execution model).
+                    per-site storage (the SHAPE/WARP execution model);
+* ``"adaptive"`` -- the online ``AdaptiveEngine`` control plane
+                    (monitor -> drift -> refragment -> migrate)
+                    wrapping the local engine, or the SPMD engine with
+                    hot ``SiteStore`` swaps at each re-partition via
+                    ``AdaptiveConfig(serve_backend="spmd")``.
 
 The local and baseline engines compute in numpy on the host, as the
 reference's do: they are the paper's host engine and its §8 baseline
 simulator, not a stand-in for the SPMD backend, which never gives way
-to them.  The ``"adaptive"`` control plane is not ported yet.
+to them.
 
 Typical use::
 
@@ -37,7 +42,7 @@ from .executor import CostModel, QueryResult
 from .plan import PartitionPlan
 from .query import QueryGraph
 
-BACKENDS = ("local", "baseline", "spmd")
+BACKENDS = ("local", "baseline", "spmd", "adaptive")
 
 
 class Session:
@@ -46,6 +51,7 @@ class Session:
     def __init__(self, plan: PartitionPlan, backend: str = "spmd", *,
                  device: Union[str, torch.device] = "cuda",
                  cost: Optional[CostModel] = None,
+                 adaptive_config=None,
                  spmd_devices: Optional[int] = None,
                  spmd_capacity: int = 4096,
                  spmd_max_capacity: Optional[int] = None,
@@ -59,14 +65,18 @@ class Session:
         Args:
             plan: the ``PartitionPlan`` to serve.
             backend: one of ``BACKENDS`` -- ``"spmd"`` (default),
-                ``"local"`` or ``"baseline"``.
+                ``"local"``, ``"baseline"`` or ``"adaptive"``.
             device: "cuda" by default, raising if CUDA is missing, for
                 every backend; "cpu" only when asked.  The spmd store
-                lives and its joins run there ("cpu" runs the kernels'
-                plain versions); the local and baseline engines compute
-                on the host either way.
+                (also the adaptive backend's with ``serve_backend=
+                "spmd"``) lives and its joins run there ("cpu" runs the
+                kernels' plain versions); the local and baseline
+                engines compute on the host either way.
             cost: optional ``CostModel`` for the ledger, shared by
                 every backend.
+            adaptive_config: ``AdaptiveConfig`` for the adaptive
+                backend (epoch length, drift thresholds, budget, data
+                plane).
             spmd_devices: width of the site axis the logical sites fold
                 onto (default: one slot per logical site).
             spmd_capacity: starting per-site binding-table rows.
@@ -88,14 +98,10 @@ class Session:
                 default is the process registry.
 
         Raises:
-            ValueError: an unknown backend, ``"adaptive"`` (not ported
-                yet), or a plan that cannot serve the requested backend.
+            ValueError: an unknown backend, or a plan that cannot serve
+                the requested backend.
             RuntimeError: ``device`` is CUDA and there is none.
         """
-        if backend == "adaptive":
-            raise ValueError("backend 'adaptive' (the online control "
-                             "plane) is not ported yet; available: "
-                             f"{list(BACKENDS)}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"choose one of {list(BACKENDS)}")
@@ -107,6 +113,11 @@ class Session:
                 capacity=spmd_capacity, cost=cost,
                 max_capacity=spmd_max_capacity, comm_plan=spmd_comm_plan,
                 routing=spmd_routing)
+        elif backend == "adaptive":
+            # lazy import: online imports core, not the other way round
+            from ..online.loop import AdaptiveEngine
+            self.engine = AdaptiveEngine(plan, adaptive_config, cost,
+                                         device=device)
         else:
             resolve_device(device)   # the host engines keep the rule too
             self.engine = (plan.build_local_engine(cost)

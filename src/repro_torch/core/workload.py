@@ -206,3 +206,29 @@ def class_template_probs(class_weights: Dict[str, float],
     w = np.array([base + class_weights.get(cls, 0.0)
                   for cls in TEMPLATE_CLASS], dtype=np.float64)
     return w / w.sum()
+
+
+def generate_drifting_workload(graph: RDFGraph,
+                               phases: Sequence[Tuple[int, Dict[str, float]]],
+                               seed: int = 0,
+                               cold_fraction: float = 0.03,
+                               constant_fraction: float = 0.5) -> Workload:
+    """Concatenate workload phases with different template popularity --
+    the drift stream the online subsystem (repro_torch.online) adapts to.
+
+    ``phases``: list of (num_queries, class_weights); class weights of
+    ``{}`` mean uniform popularity over all templates.
+    """
+    queries: List[QueryGraph] = []
+    tids: List[int] = []
+    for k, (n, cw) in enumerate(phases):
+        probs = (class_template_probs(cw) if cw
+                 else np.ones(len(TEMPLATE_CLASS)))   # uniform phase
+        wl = generate_workload(
+            graph, n, seed=seed + 7919 * k,
+            cold_fraction=cold_fraction,
+            constant_fraction=constant_fraction,
+            template_probs=probs)
+        queries.extend(wl.queries)
+        tids.extend(wl.template_ids or [-1] * len(wl.queries))
+    return Workload(queries, tids)

@@ -8,7 +8,7 @@ per-site storage (exact equality throughout).
 import numpy as np
 import pytest
 
-from generators import SEED, random_graph, shape_workload
+from generators import SEED, answer_set, random_graph, shape_workload
 import repro.core as J
 from repro.core.workload import Workload as JWorkload
 import repro_torch.core as T
@@ -144,22 +144,33 @@ def test_graph_rejects_ids_past_the_bound():
 
 
 def test_unported_strategy_and_backend_are_refused():
-    """An unknown strategy and the not yet ported ``"adaptive"`` backend
-    are refused, each naming what is available."""
+    """An unknown strategy and an unknown backend are refused, each
+    naming what is available; the ``"adaptive"`` backend builds the
+    online ``AdaptiveEngine``, which answers as the ``"local"`` backend
+    does."""
+    from repro_torch.online import AdaptiveEngine
     with pytest.raises(ValueError) as ei:
         TConfig(kind="metis")
     for name in ("vertical", "horizontal", "shape", "warp"):
         assert name in str(ei.value)
     g = random_graph(SEED)
-    tplan = T.build_plan(_port_graph(g), _port_workload(JWorkload(
-        shape_workload(g, SEED, n_props=g.num_properties))),
-        TConfig(num_sites=2))
-    with pytest.raises(ValueError, match="adaptive") as ei:
-        T.Session(tplan, backend="adaptive", device="cpu")
+    queries = shape_workload(g, SEED, n_props=g.num_properties)
+    tplan = T.build_plan(_port_graph(g), _port_workload(JWorkload(queries)),
+                         TConfig(num_sites=2))
+    adaptive = T.Session(tplan, backend="adaptive", device="cpu")
+    assert isinstance(adaptive.engine, AdaptiveEngine)
+    assert "adaptive" in T.BACKENDS
+    local = T.Session(tplan, backend="local", device="cpu")
+    for q in queries[:4]:
+        tq = T.QueryGraph.make([(e.src, e.dst, e.prop) for e in q.edges])
+        want = local.execute(tq)
+        got = adaptive.execute(tq)
+        assert answer_set(got) == answer_set(want)
+        assert got.stats.comm_bytes == want.stats.comm_bytes
+    with pytest.raises(ValueError, match="unknown backend") as ei:
+        T.Session(tplan, backend="gstore", device="cpu")
     for name in T.BACKENDS:
         assert name in str(ei.value)
-    with pytest.raises(ValueError, match="unknown backend"):
-        T.Session(tplan, backend="gstore", device="cpu")
 
 
 @pytest.mark.parametrize("max_rows", [10, 333, 5000])

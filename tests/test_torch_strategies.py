@@ -266,11 +266,20 @@ def test_incomplete_plans_raise_the_reference_errors(sources):
 
 
 def test_unported_warm_start_is_refused(sources):
+    """The warm start from an incumbent plan (ported with the online
+    loop) gives the JAX package's plan."""
     g, wl = sources["random"]
     tg, twl = _port_graph(g), _port_workload(wl)
-    plan = T.build_plan(tg, twl, T.PartitionConfig(num_sites=2))
-    with pytest.raises(NotImplementedError, match="online loop"):
-        T.build_plan(tg, twl, incumbent=plan)
+    cfg = dict(num_sites=2, replication_budget_bytes=2_000)
+    jplan = J.build_plan(g, wl, J.PartitionConfig(**cfg))
+    plan = T.build_plan(tg, twl, T.PartitionConfig(**cfg))
+    _assert_same_plan(jplan, plan)
+    jwarm = J.build_plan(g, wl, incumbent=jplan)
+    warm = T.build_plan(tg, twl, incumbent=plan)
+    _assert_same_plan(jwarm, warm)
+    assert warm.replicated_props == jwarm.replicated_props
+    assert {p.canonical_code() for p in warm.selected_patterns} \
+        & {p.canonical_code() for p in plan.selected_patterns}
 
 
 REFERENCE_TESTS = [

@@ -2,12 +2,13 @@
 graph, its shape workload and 4-site vertical plan, the routine that
 serves one plan through the JAX ``SpmdEngine`` and the port's and
 compares everything both report, exactly, and the runner that puts the
-JAX package's own unit tests (telemetry, serving, planning) through the
-port."""
+JAX package's own tests (telemetry, serving, planning, the online loop,
+checkpoints) through the port."""
 import copy
 import dataclasses
 import importlib
 import inspect
+import sys
 
 import numpy as np
 import pytest
@@ -122,8 +123,10 @@ def differential(plan, queries, mesh_n, capacity, comm_plan=True,
 _PORT_CONSTANTS = {"REQUIRED_METRICS": "repro.obs.export",
                    "REQUIRED_SERVE_METRICS": "repro.obs.export",
                    "SNAPSHOT_SCHEMA": "repro.obs.export",
-                   "BACKENDS": "repro.core.session"}
-_SWAPPED_PACKAGES = ("repro.obs", "repro.serve", "repro.core")
+                   "BACKENDS": "repro.core.session",
+                   "BYTES_PER_EDGE": "repro.online.migration"}
+_SWAPPED_PACKAGES = ("repro.obs", "repro.serve", "repro.core",
+                     "repro.online", "repro.checkpoint", "repro.distributed")
 
 
 def reference_unit_tests(module):
@@ -146,37 +149,107 @@ def _names_used(fn):
     return names
 
 
-def run_reference_test(module, name, package, monkeypatch, tmp_path):
+def swap_to_port(module, monkeypatch):
+    """Bind every name ``module`` imported from the JAX package's
+    ``obs`` / ``serve`` / ``core`` / ``online`` / ``checkpoint`` /
+    ``distributed`` to the port's module of the same path.  Returns
+    (the names swapped, the names the port lacks)."""
+    swapped, missing = set(), set()
+    for attr, val in list(vars(module).items()):
+        src = _PORT_CONSTANTS.get(attr) or getattr(val, "__module__", None)
+        if not (isinstance(src, str) and src.startswith(_SWAPPED_PACKAGES)):
+            continue
+        try:
+            port = importlib.import_module("repro_torch" + src[len("repro"):])
+        except ImportError:
+            port = None
+        if port is None or not hasattr(port, attr):
+            missing.add(attr)
+            continue
+        monkeypatch.setattr(module, attr, getattr(port, attr))
+        swapped.add(attr)
+    return swapped, missing
+
+
+def pin_port_to_cpu(monkeypatch):
+    """The port's entry points default to ``device="cuda"``; the JAX
+    package's scenarios name no device.  Resolve every device the
+    port's modules ask for to the CPU while a scenario runs, so it runs
+    here on the plain versions, as the JAX package's runs on the
+    CPU."""
+    import repro_torch.device as dev
+    resolve = dev.resolve_device
+
+    def to_cpu(device):
+        return resolve("cpu")
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("repro_torch") \
+                and getattr(mod, "resolve_device", None) is resolve:
+            monkeypatch.setattr(mod, "resolve_device", to_cpu)
+
+
+_FIXTURES = {}
+
+
+def _is_fixture(obj):
+    return callable(obj) and hasattr(obj, "__wrapped__") \
+        and type(obj).__name__ == "FixtureFunctionDefinition"
+
+
+def reference_fixture(module, name, package, conftest):
+    """The value of the reference module's fixture ``name`` built with
+    ``package``'s names (and, for the port, on the CPU), once per
+    module, fixture and package.  Its own fixture arguments come from
+    the module's fixtures or from ``conftest`` (name -> zero-argument
+    callable giving ``package``'s value)."""
+    key = (module.__name__, name, package)
+    if key not in _FIXTURES:
+        fn = getattr(module, name).__wrapped__
+        args = fixture_args(module, fn, package, conftest)
+        with pytest.MonkeyPatch.context() as mp:
+            if package == "repro_torch":
+                swap_to_port(module, mp)
+                pin_port_to_cpu(mp)
+            _FIXTURES[key] = fn(**args)
+    return _FIXTURES[key]
+
+
+def fixture_args(module, fn, package, conftest, given=None):
+    """The fixture arguments of the test or fixture ``fn`` of the
+    reference ``module``, but ``tmp_path``, built for ``package``:
+    ``given`` ones (a parametrized case's values) as they are, the
+    module's own fixtures through ``reference_fixture``, the others
+    from ``conftest``."""
+    out = dict(given or {})
+    for name in inspect.signature(fn).parameters:
+        if name == "tmp_path" or name in out:
+            continue
+        if _is_fixture(getattr(module, name, None)):
+            out[name] = reference_fixture(module, name, package, conftest)
+        else:
+            out[name] = conftest[name]()
+    return out
+
+
+def run_reference_test(module, name, package, monkeypatch, tmp_path,
+                       **fixtures):
     """Run ``module.<name>`` with every name it imported from the JAX
-    package's ``obs`` / ``serve`` / ``core`` bound to ``package``'s
-    module of the same path (``"repro"`` leaves it as it is,
-    ``"repro_torch"`` swaps in the port), so one scenario checks both
-    implementations.  Every such name the test reads must exist in the
-    port."""
+    package's swapped packages bound to ``package``'s module of the
+    same path (``"repro"`` leaves it as it is, ``"repro_torch"`` swaps
+    in the port and resolves the port's devices to the CPU), so one
+    scenario checks both implementations.  Every such name the test
+    reads must exist in the port.  ``fixtures`` supplies the test's
+    fixture arguments other than ``tmp_path``, built for ``package``."""
     fn = getattr(module, name)
     if package == "repro_torch":
-        swapped, missing = set(), set()
-        for attr, val in list(vars(module).items()):
-            src = _PORT_CONSTANTS.get(attr) or getattr(val, "__module__",
-                                                       None)
-            if not (isinstance(src, str)
-                    and src.startswith(_SWAPPED_PACKAGES)):
-                continue
-            try:
-                port = importlib.import_module("repro_torch"
-                                               + src[len("repro"):])
-            except ImportError:
-                port = None
-            if port is None or not hasattr(port, attr):
-                missing.add(attr)
-                continue
-            monkeypatch.setattr(module, attr, getattr(port, attr))
-            swapped.add(attr)
+        swapped, missing = swap_to_port(module, monkeypatch)
         assert swapped, f"{module.__name__} imports nothing to swap"
         unported = missing & _names_used(fn)
         assert not unported, f"{name} reads names the port lacks: {unported}"
-    kw = ({"tmp_path": tmp_path}
-          if "tmp_path" in inspect.signature(fn).parameters else {})
+        pin_port_to_cpu(monkeypatch)
+    kw = {k: fixtures[k] if k != "tmp_path" else tmp_path
+          for k in inspect.signature(fn).parameters}
     fn(**kw)
 
 
