@@ -47,10 +47,27 @@ Phases, each fatal on any error or mismatch:
    bound to a data constant plus a star, a chain and a cycle, counters
    read; every answer set equals the same engine run on the plain
    versions, a subset equals the host ``match_pattern``, and every
-   kernel of the path launched; one warm pass under the profiler
-   (device busy share, the port's kernels by name); then the same
-   queries through ``execute_many`` in batches of 64 on a fresh engine
-   (answers equal to ``execute``'s, counters and launches read).
+   kernel of the path launched; the two runs' per-query ledgers
+   (``comm_bytes`` and capacity retries) must be equal on every query
+   that retried on neither side, and the retried queries that differ
+   are printed (on an overflowing tier row order decides which rows
+   survive); one warm pass under the profiler (device busy share, the
+   port's kernels by name); then the same queries through
+   ``execute_many`` in batches of 64 on a fresh engine (answers equal
+   to ``execute``'s, counters and launches read).  Then the functional
+   matcher API: ``spmd_match`` over the plan's 4-site store and
+   ``local_match`` over the whole graph as one site for the star, chain
+   and cycle, rows equal to the session's, and for a closed triangle
+   (the cycle with its last edge turned around; 66,176 rows on this
+   graph), rows equal to the host ``match_pattern``'s and not empty
+   (the cycle and the triangle through ``pair_semijoin`` and
+   ``dedup_rows``, every join kernel launched);
+   and a site lost: ``replan_allocation`` of the plan's fragment
+   affinity to 3 sites, the queries served on an SPMD engine over that
+   allocation's store (the one ``SiteStore.from_fragmentation``
+   builds) with answers equal to the 4-site
+   serve's and every join kernel launched (store seconds, qps, p50/p99,
+   the ledger against the 4-site one, resident rows per site).
 5. front door, on the same plan: a traced ``Session`` answers the
    served queries directly (warming it on this thread; per query, the
    ``comm_step`` records' bytes and decision counts equal its ledger and
@@ -67,13 +84,16 @@ Phases, each fatal on any error or mismatch:
    seconds and peak device memory); ``python -m repro_torch.serve
    --smoke``'s ``main`` in-process on the card.
 6. the online adaptive loop on the same plan: a drifting stream
-   (``generate_drifting_workload``, 200 uniform then 400 star-heavy
+   (``generate_drifting_workload``, 200 uniform then 400 linear-heavy
    queries, every template query bound to a constant) through
    ``Session(plan, backend="adaptive")`` with the SPMD data plane
-   (epochs of 100 queries, a 9,000,000-byte migration budget): a line
-   per epoch (drift, migration bytes and makespan, re-fragmentation
-   seconds by step, ``swap_store`` seconds, store generation, resident
-   rows per site), the serve before and after the first hot swap, the
+   (epochs of 100 queries, a 48,000,000-byte migration budget, room
+   for the re-partition's optional moves): a line per epoch (drift,
+   migration bytes and makespan, the deferred moves' affinity gains,
+   re-fragmentation seconds by step, ``swap_store`` seconds, store
+   generation, resident rows per site), resident rows per site before
+   the stream and after every swap (a swap must change them), the
+   serve before and after the first hot swap, the
    launches on both sides of it (every join kernel must launch on
    both), trace<->ledger on every tenth query, every answer against a
    static session of the original plan on the plain versions, the
@@ -112,10 +132,25 @@ Phases, each fatal on any error or mismatch:
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
-9. the kernels as one JSON line (each with the path it launched on and
+9. train: ``ops.attention`` refuses a q that requires grad (no launch);
+   one float32 train step at qwen3-1.7b's width with 2 layers on the
+   card and on the CPU from the same weights and batches (loss and
+   grad norm within the stated tolerances, and the loss of a second
+   step; TF32 off); ``train()`` at full width with 2 layers in bf16,
+   checkpointed after step 3 and resumed from it (the resumed losses
+   equal the uninterrupted run's); then qwen3-1.7b at full width and
+   depth, bf16 weights, float32 AdamW moments, remat "full", 8 steps of
+   4 x 1024 tokens (tok/s over steps 2-8, step seconds, peak device
+   memory, losses and grad norms; finite, the last loss below the
+   first; no kernel launched: training takes plain attention), and a
+   ninth step under the profiler (device busy share, largest kernels).
+   The launch counts are set to 0 before the refusal and read after
+   the ninth step: ``flash_attention``'s ``paths.train`` is that count.
+10. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path, the join
-   kernels on ``spmd``, ``serve``, ``adaptive``, ``horizontal``,
-   ``shape`` and ``warp``), the card line, and last the result.
+   kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
+   ``adaptive``, ``horizontal``, ``shape`` and ``warp``), the card
+   line, and last the result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
@@ -123,6 +158,7 @@ commit's checkout in the same chip call as a change.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -1118,11 +1154,14 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     ops.reset_launches()
     lat: List[float] = []
     results = []
+    retries: List[int] = []
     t_serve = time.perf_counter()
     for q in queries:
+        before = _retries(session)
         t0 = time.perf_counter()
         results.append(session.execute(q))
         lat.append(time.perf_counter() - t0)
+        retries.append(_retries(session) - before)
     t_serve = time.perf_counter() - t_serve
     launches = dict(ops.LAUNCHES)
     st = session.stats()
@@ -1145,11 +1184,16 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     # phase only, and no kernel may launch in it
     ops.reset_launches()
     t0 = time.perf_counter()
+    plain_results = []
+    plain_retries: List[int] = []
     with mock.patch.multiple(spmd_module, join_range=ref.join_range_ref,
                              pair_semijoin_runs=ref.pair_semijoin_runs_ref,
                              dedup_rows_masked=ref.dedup_rows_masked_ref,
                              fused_join_sites=ref.fused_join_sites_ref):
-        plain_results = [plain.execute(q) for q in queries]
+        for q in queries:
+            before = _retries(plain)
+            plain_results.append(plain.execute(q))
+            plain_retries.append(_retries(plain) - before)
     t_plain = time.perf_counter() - t0
     if any(ops.LAUNCHES.values()):
         fail(f"kernels launched in the plain run: {ops.LAUNCHES}")
@@ -1160,6 +1204,9 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
                  f"the kernels, {rb.shape[0]} on the plain versions")
     print(f"plain versions: {len(queries)} answer sets equal "
           f"({t_plain:.2f} s on the plain versions)", flush=True)
+    compare_ledgers(queries, [r.stats.comm_bytes for r in results], retries,
+                    [r.stats.comm_bytes for r in plain_results],
+                    plain_retries)
     t0 = time.perf_counter()
     checked = list(range(HOST_CHECKED)) + list(range(SERVED, len(queries)))
     for i in checked:
@@ -1173,6 +1220,46 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
           f"{[r.num_rows for r in results[SERVED:]]}", flush=True)
     serve_profile(session, queries)
     return launches, results
+
+
+def _retries(session) -> int:
+    return int(session.stats().extra["capacity_retries"])
+
+
+def compare_ledgers(queries, card_bytes: List[int], card_retries: List[int],
+                    plain_bytes: List[int], plain_retries: List[int]) -> None:
+    """Hold the card's per-query ledger to the plain versions'.  A query
+    that made no capacity retry on either side must ship the same bytes
+    with the same retries.  On an overflowing tier the rows that
+    survive depend on row order (the plain versions sort the deduped
+    rows, the kernels keep them in place, as the reference's CPU path
+    and its TPU kernels do), so that tier's bytes may differ: retried
+    queries are printed, the ones that differ named, not failed."""
+    same_free, retried, differ = 0, [], []
+    for i in range(len(queries)):
+        equal = (card_bytes[i] == plain_bytes[i]
+                 and card_retries[i] == plain_retries[i])
+        if card_retries[i] == 0 and plain_retries[i] == 0:
+            if not equal:
+                fail(f"ledger: query {i} {queries[i].edges} made no retry "
+                     f"but ships {card_bytes[i]} bytes on the kernels, "
+                     f"{plain_bytes[i]} on the plain versions")
+            same_free += 1
+            continue
+        retried.append(i)
+        if not equal:
+            differ.append(i)
+    diff = sum(card_bytes[i] - plain_bytes[i] for i in differ)
+    print(f"ledger, kernels vs plain versions: {same_free} queries without "
+          f"a retry equal; {len(retried)} retried ({sum(card_retries)} "
+          f"retries on the kernels, {sum(plain_retries)} on the plain "
+          f"versions), {len(differ)} of them differ, by {diff} bytes in "
+          f"all (kernels {sum(card_bytes)}, plain {sum(plain_bytes)} "
+          f"bytes)", flush=True)
+    for i in differ:
+        print(f"ledger differs: query {i} {queries[i].edges}: kernels "
+              f"{card_bytes[i]} bytes / {card_retries[i]} retries, plain "
+              f"{plain_bytes[i]} / {plain_retries[i]}", flush=True)
 
 
 def serve_profile(session, queries) -> None:
@@ -1218,6 +1305,198 @@ def serve_many_phase(plan, queries, results, card: str) -> Dict[str, int]:
                  f"{ra.shape[0]} rows, execute {rb.shape[0]}")
     print(f"execute_many: {len(queries)} answer sets equal the execute "
           f"serve's", flush=True)
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Matcher and site-loss phases
+# ----------------------------------------------------------------------
+
+MATCH_CAPACITY = 4096            # the first tier of the matcher's ladder
+
+
+def _var_rows(rows: np.ndarray, cols: List[int]) -> np.ndarray:
+    """Matcher rows in ``cols`` order as ``answer_rows`` lays an answer
+    out: columns by sorted variable, distinct rows lexsorted."""
+    out = rows[:, np.argsort(cols)].astype(np.int64)
+    return np.unique(out, axis=0) if out.size else out.reshape(0, len(cols))
+
+
+def _launch_delta(before: Dict[str, int]) -> Dict[str, int]:
+    from repro_torch.kernels import ops
+    return {k: ops.LAUNCHES[k] - before.get(k, 0) for k in JOIN_KERNELS}
+
+
+def closed_triangle(cycle):
+    """The served cycle with its closing edge turned around: ``?a p1 ?b
+    . ?b p2 ?c . ?a p3 ?c``.  On the smoke's graph the directed cycle
+    has no match, while this triangle is closed by many (its answer is
+    held non-empty), and its last edge still joins two bound variables,
+    so it too goes through the pair semijoin and the cycle-close
+    dedup."""
+    from repro_torch.core.query import QueryGraph
+    *path, last = cycle.edges
+    return QueryGraph.make([(e.src, e.dst, e.prop) for e in path]
+                           + [(last.dst, last.src, last.prop)])
+
+
+def matcher_phase(graph, store, shapes, want, card: str,
+                  dev: str = "cuda") -> Dict[str, int]:
+    """The functional matcher API on the smoke's graph: ``spmd_match``
+    over the plan's 4-site store and ``local_match`` over the whole
+    graph as one site, for the star, chain and cycle, each answer equal
+    to the session's (``want``, ``answer_rows``), and for the closed
+    triangle (``closed_triangle``), whose answer ``match_pattern`` gives
+    on the host and must not be empty.  ``spmd_match`` climbs from
+    ``MATCH_CAPACITY`` until the matcher it builds reports no overflow
+    (it returns what fitted, as the reference's does; the overflow is
+    read through a recording ``make_spmd_matcher``); ``local_match``
+    runs at four times the tier it settles on.  The cycle and the
+    triangle must reach ``pair_semijoin_runs`` and ``dedup_rows_masked``
+    and the phase every join kernel.  Returns its launches."""
+    from unittest import mock
+
+    from repro_torch.core import match_pattern
+    from repro_torch.core import spmd as spmd_module
+    from repro_torch.core.spmd import local_match, spmd_match
+    from repro_torch.kernels import ops
+    triangle = closed_triangle(shapes[2])
+    t0 = time.perf_counter()
+    tri_want = answer_rows(match_pattern(graph, triangle,
+                                         max_rows=1 << 40).columns)
+    t_host = time.perf_counter() - t0
+    if tri_want.shape[0] == 0:
+        fail(f"matcher: the closed triangle {triangle.edges} has no match "
+             f"on the host")
+    cols_t = [torch.from_numpy(np.asarray(c, np.int32)).to(dev)
+              for c in (graph.s, graph.p, graph.o)]
+    overflow: List[int] = []
+    build = spmd_module.make_spmd_matcher
+
+    def recording(pattern, capacity):
+        fn = build(pattern, capacity)
+
+        def run(st):
+            out = fn(st)
+            overflow.append(int(out[2].max()))
+            return out
+        return run
+
+    start = dict(ops.LAUNCHES)
+    for name, q, rows_want in zip(("star", "chain", "cycle", "triangle"),
+                                  list(shapes) + [triangle],
+                                  list(want) + [tri_want]):
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        cap = MATCH_CAPACITY
+        with mock.patch.object(spmd_module, "make_spmd_matcher", recording):
+            while True:
+                rows, cols = spmd_match(store, q, capacity=cap)
+                if overflow[-1] == 0:
+                    break
+                cap *= 2
+                if cap > MAX_CAPACITY:
+                    fail(f"matcher: the {name} overflows {MAX_CAPACITY} "
+                         f"rows a site")
+        torch.cuda.synchronize()
+        t_spmd = time.perf_counter() - t0
+        spmd_launches = _launch_delta(before)
+        t0 = time.perf_counter()
+        bind, valid, lcols = local_match(*cols_t, q, 4 * cap)
+        local = bind[valid].cpu().numpy()
+        t_local = time.perf_counter() - t0
+        for what, got, c in (("spmd_match", rows, cols),
+                             ("local_match", local, lcols)):
+            got = _var_rows(got, c)
+            if got.shape != rows_want.shape \
+                    or not np.array_equal(got, rows_want):
+                fail(f"matcher: {what} of the {name} gives {got.shape[0]} "
+                     f"rows, the reference {rows_want.shape[0]}")
+        print(f"matcher {name} ({card}): {rows_want.shape[0]} rows equal "
+              f"the {'host match_pattern' if name == 'triangle' else 'session'}"
+              f"'s from spmd_match at capacity {cap} over "
+              f"{store.num_sites} sites ({t_spmd:.2f} s, launches "
+              f"{spmd_launches}) and from local_match at {4 * cap} over one "
+              f"site ({t_local:.2f} s)", flush=True)
+        if name in ("cycle", "triangle"):
+            missing = [k for k in ("pair_semijoin", "dedup_rows")
+                       if k in JOIN_KERNELS and spmd_launches[k] <= 0]
+            if missing:
+                fail(f"matcher: the {name} never launched {missing}")
+    launches = _launch_delta(start)
+    print(f"launches on the matcher phase: {launches} (the triangle's "
+          f"{triangle.edges}: host match_pattern {t_host:.1f} s)", flush=True)
+    missing = [k for k in JOIN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"matcher: kernels never launched: {missing}")
+    return launches
+
+
+LOST_SITE_COUNT = SITES - 1      # one site of the plan lost
+
+
+def site_loss_phase(graph, plan, queries, results, session, card: str,
+                    dev: str = "cuda") -> Dict[str, int]:
+    """A site lost: ``replan_allocation`` re-clusters the vertical plan's
+    fragment affinity onto ``LOST_SITE_COUNT`` sites (Algorithm 2,
+    balanced), and an SPMD engine over the per-site edges of that
+    allocation (``fragment_site_edge_ids``: its store is the one
+    ``SiteStore.from_fragmentation`` builds, built once) serves the
+    queries, every answer equal to the 4-site serve's (``results``) and
+    every join kernel launched.  Prints the store seconds, qps,
+    p50/p99, the ledger against the 4-site serve's and the resident
+    rows per site.  Returns the serve's launches."""
+    from repro_torch.core.allocation import fragment_affinity
+    from repro_torch.core.spmd import SpmdEngine, fragment_site_edge_ids
+    from repro_torch.distributed import replan_allocation
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    aff = fragment_affinity(plan.frag, plan.sel_usage, plan.weights)
+    sizes = np.array([f.size for f in plan.frag.fragments], np.float64)
+    site_of = replan_allocation(aff, LOST_SITE_COUNT, sizes)
+    t_replan = time.perf_counter() - t0
+    if sorted(set(site_of.tolist())) != list(range(LOST_SITE_COUNT)):
+        fail(f"site loss: the re-allocation uses sites "
+             f"{sorted(set(site_of.tolist()))}")
+    t0 = time.perf_counter()
+    eng = SpmdEngine(graph, fragment_site_edge_ids(
+        plan.frag, site_of, LOST_SITE_COUNT), device=dev,
+        max_capacity=MAX_CAPACITY)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    ops.reset_launches()
+    lat = []
+    got = []
+    t_serve = time.perf_counter()
+    for q in queries:
+        t = time.perf_counter()
+        got.append(eng.execute(q))
+        lat.append(time.perf_counter() - t)
+    t_serve = time.perf_counter() - t_serve
+    launches = {k: ops.LAUNCHES[k] for k in JOIN_KERNELS}
+    for i, (a, b) in enumerate(zip(got, results)):
+        ra, rb = answer_rows(a.bindings), answer_rows(b.bindings)
+        if ra.shape != rb.shape or not np.array_equal(ra, rb):
+            fail(f"site loss, query {i} {queries[i].edges}: {ra.shape[0]} "
+                 f"rows on {LOST_SITE_COUNT} sites, {rb.shape[0]} on "
+                 f"{SITES}")
+    st, st4 = eng.stats(), session.stats()
+    print(f"site loss ({card}): {SITES} -> {LOST_SITE_COUNT} sites, "
+          f"replan_allocation {t_replan:.2f} s, store {t_store:.1f} s, "
+          f"resident rows per site "
+          f"{eng.store.prop_dev_rows.sum(1).tolist()} (on {SITES} sites "
+          f"{session.engine.store.prop_dev_rows.sum(1).tolist()}); "
+          f"{_pcts(lat)}; comm_bytes={st.comm_bytes} against "
+          f"{sum(r.stats.comm_bytes for r in results)} on {SITES} sites; "
+          f"capacity_retries={int(st.extra['capacity_retries'])} "
+          f"({int(st4.extra['capacity_retries'])} on {SITES}); "
+          f"{len(queries)} answer sets equal the {SITES}-site serve's; "
+          f"launches {launches}", flush=True)
+    missing = [k for k in JOIN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"site loss: kernels never launched: {missing}")
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1929,8 +2208,14 @@ def online_bench_runs(core, online, **device_kw) -> Dict[str, dict]:
 # ----------------------------------------------------------------------
 
 ADAPTIVE_EPOCH = 100
-ADAPTIVE_BUDGET = 9_000_000      # about 10% of the graph's 12-byte edges
-ADAPTIVE_PHASES = [(200, {}), (400, {"S": 12.0})]   # uniform, star-heavy
+# The stream drifts to linear (chain) templates: its re-partition moves
+# fragments between sites (14,950,092 bytes, 5,217,252 of them
+# mandatory, on this graph), so the swap changes what the sites hold.
+# A star-heavy drift's optional moves have affinity gains of 0 or less,
+# which the planner never moves at any budget.  The budget leaves room
+# for the optional moves after the mandatory materialization.
+ADAPTIVE_BUDGET = 48_000_000
+ADAPTIVE_PHASES = [(200, {}), (400, {"L": 12.0})]   # uniform, linear-heavy
 ADAPTIVE_SEED = 23
 TRACE_EVERY = 10                 # every 10th query of the stream traced
 DELTA_ADD, DELTA_REMOVE, DELTA_SEED = 20_000, 10_000, 7
@@ -2119,6 +2404,7 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
             spmd.post_execute_hooks.extend(hooks)
 
     shape_answers = run_shapes()
+    rows_before = spmd.store.prop_dev_rows.sum(1).tolist()
     t_stream = time.perf_counter()
     with mock.patch.dict(plan_module.STRATEGIES._refragmenters, hooks):
         with contextlib.ExitStack() as stack:
@@ -2162,7 +2448,9 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
             sw = swaps[len([e for e in reparts if e <= ep.epoch]) - 1]
             line += (f"; moved_bytes={ep.moved_bytes} (mandatory "
                      f"{rp['mandatory_bytes']}) deferred_bytes="
-                     f"{rp['deferred_bytes']} ({ep.deferred_moves} moves) "
+                     f"{rp['deferred_bytes']} ({ep.deferred_moves} moves, "
+                     f"affinity gains "
+                     f"{[round(m.gain, 3) for m in rp['mig'].deferred]}) "
                      f"makespan={ep.migration_makespan_sec:.6f} s; "
                      f"refragment {rp['secs']:.1f} s ("
                      + ", ".join(f"{k} {v:.1f} s" for k, v in
@@ -2179,6 +2467,12 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
           f"({sum(lat['swapping']):.1f} s)", flush=True)
     if not swaps:
         fail("adaptive: drift never fired a re-partition")
+    print(f"adaptive residency ({card}): resident rows per site before "
+          f"the stream {rows_before}, after each swap "
+          f"{[sw['rows'] for sw in swaps]}", flush=True)
+    if all(sw["rows"] == rows_before for sw in swaps):
+        fail(f"adaptive: no swap changed the resident rows per site "
+             f"({rows_before})")
     first = swaps[0]["launches"]
     after = {k: launches[k] - first[k] for k in launches}
     print(f"launches on the adaptive stream and the shape queries before "
@@ -2747,6 +3041,186 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# Train phase
+# ----------------------------------------------------------------------
+
+# qwen3-1.7b at its published width and depth with its production
+# profile (remat "full"), bf16 weights and float32 AdamW moments; cut
+# from the train_4k shape (256 x 4096) to 4 x 1024 tokens, 8 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_CUT = (f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (not 256 x 4096), "
+             f"{TRAIN_STEPS} steps, synthetic TokenStream, no checkpoint")
+# card against CPU: one float32 step at full width with 2 layers, then
+# the loss of a second; float32 sums in another order (TF32 off)
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 2, 64
+CHECK_LOSS_ATOL, CHECK_GNORM_RTOL = 1e-4, 1e-4
+# train() stopped and resumed at full width with 2 layers (bf16): five
+# steps checkpointing after the third, then a run resumed from it
+RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_AT = 2, 256, 5, 3
+
+
+def _train_steps(cfg, model, n, batch, seq, seed=0, profile=None):
+    """``n`` steps of ``make_train_step`` on ``TokenStream`` batches,
+    and with ``profile`` (a label) one step more under the profiler.
+    Returns (losses, grad norms, step seconds, model) of the ``n``, and
+    with ``profile`` the card's peak memory over them."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = next(model.parameters()).device
+    step = make_train_step(cfg, batch=batch, seq=seq, total_steps=n)
+    opt = adamw_init(dict(model.named_parameters()), AdamWConfig())
+    stream = TokenStream(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    losses, norms, secs = [], [], []
+    try:
+        for i in range(n):
+            x, y = stream.batch_at(i)
+            x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, x, y)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+        if profile:
+            peak = torch.cuda.max_memory_allocated()
+            x, y = (torch.from_numpy(a).to(dev) for a in stream.batch_at(n))
+            device_profile(lambda: step(model, opt, x, y), profile)
+    finally:
+        stream.close()
+    return (losses, norms, secs, model) + ((peak,) if profile else ())
+
+
+def train_check_phase(card: str, dev: str = "cuda") -> None:
+    """One float32 train step of qwen3-1.7b's width with 2 layers on the
+    card and on the CPU from the same weights and batches: loss and
+    gradient norm within the stated tolerances, and the loss of a
+    second step."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_lm
+    cfg = dataclasses.replace(get_arch(LM_ARCH).optimized_config(),
+                              num_layers=CHECK_LAYERS, dtype=torch.float32)
+    cpu_model = build_lm(cfg, device="cpu", seed=1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    t0 = time.perf_counter()
+    cl, cn, _s, _m = _train_steps(cfg, cpu_model, 2, CHECK_BATCH, CHECK_SEQ)
+    t_cpu = time.perf_counter() - t0
+    del _m, cpu_model
+    gl, gn, _s, _m = _train_steps(cfg, card_model, 2, CHECK_BATCH, CHECK_SEQ)
+    del _m, card_model
+    torch.cuda.empty_cache()
+    print(f"train check ({card}): float32, {cfg.d_model} wide, "
+          f"{CHECK_LAYERS} layers, {CHECK_BATCH}x{CHECK_SEQ} tokens: loss "
+          f"{gl[0]!r} on the card, {cl[0]!r} on the CPU; grad norm "
+          f"{gn[0]!r} / {cn[0]!r}; second step's loss {gl[1]!r} / "
+          f"{cl[1]!r} (CPU {t_cpu:.1f} s; tolerances loss {CHECK_LOSS_ATOL}, "
+          f"grad norm {CHECK_GNORM_RTOL} relative)", flush=True)
+    for what, a, b in (("loss", gl[0], cl[0]), ("second loss", gl[1], cl[1])):
+        if not abs(a - b) <= CHECK_LOSS_ATOL:
+            fail(f"train check: {what} {a} on the card, {b} on the CPU")
+    if not abs(gn[0] - cn[0]) <= CHECK_GNORM_RTOL * abs(cn[0]):
+        fail(f"train check: grad norm {gn[0]} on the card, {cn[0]} on the "
+             f"CPU")
+
+
+def train_resume_phase(card: str, dev: str = "cuda") -> None:
+    """``train()`` at full width with 2 layers, checkpointing after step
+    ``RESUME_AT``, then a run resumed from that checkpoint: its losses
+    equal the uninterrupted run's."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_arch(LM_ARCH).optimized_config(),
+                              num_layers=CHECK_LAYERS)
+    d = ROOT / "build" / "train_checkpoints"
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(steps=RESUME_STEPS, batch=RESUME_BATCH, seq=RESUME_SEQ,
+              config_override=cfg, ckpt_dir=str(d), log_every=100,
+              device=dev)
+    t0 = time.perf_counter()
+    whole = train(LM_ARCH, ckpt_every=RESUME_AT, **kw)
+    t_whole = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+    t0 = time.perf_counter()
+    resumed = train(LM_ARCH, **kw)
+    t_resumed = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"train resume ({card}): {cfg.d_model} wide, {CHECK_LAYERS} "
+          f"layers, bf16: {RESUME_STEPS} steps in {t_whole:.1f} s with a "
+          f"checkpoint of {nbytes} bytes after step {RESUME_AT}; resumed "
+          f"from step {resumed.resumed_from} in {t_resumed:.1f} s; losses "
+          f"{whole.losses} / resumed {resumed.losses}", flush=True)
+    if resumed.resumed_from != RESUME_AT \
+            or resumed.losses != whole.losses[RESUME_AT:]:
+        fail("train resume: the resumed losses differ from the "
+             "uninterrupted run's")
+
+
+def train_phase(card: str, dev: str = "cuda") -> int:
+    """The LM training path on the card: attention refuses autograd;
+    the card agrees with the CPU at 2 layers; ``train()`` resumes
+    exactly; then qwen3-1.7b at full width and depth trains
+    ``TRAIN_STEPS`` steps (finite, decreasing loss).  The launch counts
+    are set to 0 once, before the refusal, and read after the whole
+    phase: no kernel may launch on the training path.  Returns
+    flash_attention's count (0)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_lm, param_count
+    from repro_torch.models.lm import lm_defs
+    # float32 products in full float32 for the card-against-CPU check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launches()
+    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    try:
+        ops.attention(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        print(f"attention under autograd ({card}): refused ({e})",
+              flush=True)
+    else:
+        fail("attention: a q that requires grad was not refused on the card")
+    if ops.LAUNCHES["flash_attention"]:
+        fail("attention: the refused call launched the kernel")
+    del q
+    train_check_phase(card, dev)
+    train_resume_phase(card, dev)
+
+    cfg = get_arch(LM_ARCH).optimized_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_lm(cfg, device=dev, seed=0)
+    losses, norms, secs, model, peak = _train_steps(
+        cfg, model, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+        profile=f"train step {TRAIN_STEPS + 1} (qwen3-1.7b, "
+                f"{TRAIN_BATCH}x{TRAIN_SEQ})")
+    launches = dict(ops.LAUNCHES)
+    print(f"launches on the training path (refusal, card-vs-CPU check, "
+          f"resume, full-depth steps): {launches}", flush=True)
+    if any(launches.values()):
+        fail(f"kernels launched on the training path: {launches}")
+    warm = secs[1:]
+    print(f"train ({card}): {cfg.name}, {param_count(lm_defs(cfg))} "
+          f"parameters, {cfg.num_layers} layers, {cfg.dtype} weights, "
+          f"float32 AdamW moments, remat {cfg.remat!r}; cut: {TRAIN_CUT}; "
+          f"tok/s over steps 2-{TRAIN_STEPS} "
+          f"{TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(warm):.1f}; step s "
+          f"{[round(t, 4) for t in secs]}; max_memory_allocated={peak} "
+          f"bytes; loss {losses[0]!r} -> {losses[-1]!r} ({losses}); grad "
+          f"norms {norms}", flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail(f"train: non-finite loss or grad norm ({losses}, {norms})")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    del model
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
 def rdf_setup():
     """Phase 2: the WatDiv graph, its design workload, the 4-site plan
     and a session serving it on the card."""
@@ -2801,6 +3275,10 @@ def spmd_phase(card: str) -> Dict[str, dict]:
                if path == "spmd" and many[k] <= 0]
     if missing:
         fail(f"kernels never launched on the execute_many serve: {missing}")
+    matcher = matcher_phase(graph, session.engine.store, queries[SERVED:],
+                            [answer_rows(r.bindings)
+                             for r in results[SERVED:]], card)
+    lost = site_loss_phase(graph, plan, queries, results, session, card)
     served = door_phase(plan, queries, results, session, card)
     missing = [k for k, (_s, _t, path) in KERNELS.items()
                if path == "spmd" and served[k] <= 0]
@@ -2817,6 +3295,8 @@ def spmd_phase(card: str) -> Dict[str, dict]:
         kernels[k]["launches"] = launches[k]
         if KERNELS[k][2] == "spmd":
             kernels[k]["paths"] = {"spmd": launches[k], "serve": served[k],
+                                   "matcher": matcher[k],
+                                   "site_loss": lost[k],
                                    "adaptive": adaptive[k],
                                    **{kind: strategies[kind][k]
                                       for kind in STRATEGY_KINDS}}
@@ -2886,8 +3366,10 @@ def main() -> None:
     kernels = spmd_phase(card)
     torch.cuda.empty_cache()
     kernels["flash_attention"] = lm_phase(card)
+    torch.cuda.empty_cache()
     kernels["flash_attention"]["paths"] = {
-        "lm": kernels["flash_attention"]["launches"]}
+        "lm": kernels["flash_attention"]["launches"],
+        "train": train_phase(card)}
 
     rows = []
     for name, (source, replaces, path) in KERNELS.items():

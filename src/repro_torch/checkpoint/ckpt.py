@@ -25,10 +25,12 @@ import queue
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..tree import tree_map
 
 
 def _walk(tree: Any, path: Tuple, out: List[Tuple[Tuple, Any]]) -> None:
@@ -48,19 +50,6 @@ def _flatten_with_names(tree: Any) -> List[Tuple[str, Any]]:
     flat: List[Tuple[Tuple, Any]] = []
     _walk(tree, (), flat)
     return [("/".join(str(p) for p in path), leaf) for path, leaf in flat]
-
-
-def _map_leaves(tree: Any, fn: Callable[[Any], Any]) -> Any:
-    """``tree`` with every leaf replaced by ``fn(leaf)``, visited in
-    ``_flatten_with_names`` order."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        out = {k: _map_leaves(tree[k], fn) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn) for v in tree)
-    return fn(tree)
 
 
 def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
@@ -138,7 +127,7 @@ def load_checkpoint(directory: str | Path, step: int, like: Any) -> Any:
             out = out.to(leaf.device)
         return out
 
-    return _map_leaves(like, restore)
+    return tree_map(restore, like)
 
 
 class CheckpointManager:
@@ -193,7 +182,7 @@ class CheckpointManager:
             if isinstance(leaf, torch.Tensor):
                 return leaf.detach().to("cpu", copy=True)
             return np.array(leaf)
-        self._q.put((step, _map_leaves(tree, snapshot)))
+        self._q.put((step, tree_map(snapshot, tree)))
 
     def wait(self) -> None:
         self._q.join()

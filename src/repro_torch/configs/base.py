@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 from ..models import ModelConfig
 
@@ -39,6 +39,13 @@ class ArchSpec:
     shapes: Dict[str, ShapeSpec]
     source: str = ""
     notes: str = ""
+    # config overrides of the production profile (the plain ``config``
+    # stays the baseline)
+    optimized: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def shape(self, name: str) -> ShapeSpec:
         return self.shapes[name]
+
+    def optimized_config(self) -> ModelConfig:
+        return dataclasses.replace(self.config, **self.optimized) \
+            if self.optimized else self.config

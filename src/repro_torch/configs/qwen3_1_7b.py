@@ -19,6 +19,7 @@ SMOKE = ModelConfig(
 SPEC = ArchSpec(
     arch_id="qwen3-1.7b", config=CONFIG, smoke=SMOKE,
     shapes=lm_shapes(long_ok=False),
+    optimized={"remat": "full"},
     source="hf:Qwen/Qwen3-8B; hf",
     notes="qk_norm, GQA.",
 )

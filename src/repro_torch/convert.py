@@ -13,7 +13,10 @@ allocation, baseline per-site storage, selected patterns, config) and
 from it, data dictionary included, so one plan is served by every
 backend of either package.  ``lm_params_from_numpy`` loads a JAX-layout
 parameter tree (numpy arrays, stacked ``layers`` axis) into this
-package's ``LM``.
+package's ``LM`` and ``lm_params_to_numpy`` is its inverse;
+``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` do the same for
+the optimizer state, so a ``{params, opt}`` checkpoint has the same
+leaf names in both packages.
 """
 from __future__ import annotations
 
@@ -170,9 +173,12 @@ def plan_from_state_arrays(arrays: PlanArrays) -> PartitionPlan:
         replicated_props=set(arrays["replicated_props"]))
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
-    """A numpy array as a CPU tensor; numpy's bfloat16 extension type
-    (which torch cannot read) goes through its 16-bit pattern."""
+def _tensor(a: Any) -> torch.Tensor:
+    """A host array as a CPU tensor: a torch tensor as it is, a numpy
+    array copied, numpy's bfloat16 extension type (which torch cannot
+    read) through its 16-bit pattern."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     a = np.array(a)                 # a writable copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -192,7 +198,7 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         leaf = tree
         for k in keys:
             leaf = leaf[k]
-        src = _tensor(np.asarray(leaf))
+        src = _tensor(leaf)
         if tuple(src.shape) != d.shape:
             raise ValueError(f"{path}: shape {tuple(src.shape)}, expected "
                              f"{d.shape}")
@@ -203,3 +209,89 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         else:
             getattr(model, keys[0]).copy_(src)
     return model
+
+
+def _layer_name(keys: List[str], i: int) -> str:
+    """The module name of layer ``i``'s parameter at JAX path
+    ``layers/<keys[1:]>``."""
+    return ".".join(["blocks", str(i)] + keys[1:])
+
+
+def _host_leaf(t: torch.Tensor) -> Any:
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _stack_named(named: Dict[str, torch.Tensor], cfg: ModelConfig
+                 ) -> Dict[str, Any]:
+    """A dict keyed by the ``LM``'s parameter names (``blocks.<i>.``
+    per layer) as the JAX-layout tree, layer leaves stacked on the
+    host."""
+    tree: Dict[str, Any] = {}
+    for path, _d in iter_defs(lm_defs(cfg)):
+        keys = path.split(".")
+        if keys[0] == "layers":
+            leaf = torch.stack([named[_layer_name(keys, i)].detach().cpu()
+                                for i in range(cfg.num_layers)])
+        else:
+            leaf = named[path]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _host_leaf(leaf)
+    return tree
+
+
+def _unstack(tree: Dict[str, Any], cfg: ModelConfig,
+             device: torch.device) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_stack_named``, each leaf copied to ``device``
+    in the dtype it has in ``tree``."""
+    named: Dict[str, torch.Tensor] = {}
+    for path, d in iter_defs(lm_defs(cfg)):
+        keys = path.split(".")
+        leaf = tree
+        for k in keys:
+            leaf = leaf[k]
+        src = _tensor(leaf)
+        if tuple(src.shape) != d.shape:
+            raise ValueError(f"{path}: shape {tuple(src.shape)}, expected "
+                             f"{d.shape}")
+        if keys[0] == "layers":
+            for i in range(cfg.num_layers):
+                named[_layer_name(keys, i)] = src[i].to(device, copy=True)
+        else:
+            named[path] = src.to(device, copy=True)
+    return named
+
+
+def lm_params_to_numpy(model: LM) -> Dict[str, Any]:
+    """The ``LM``'s weights as a JAX-layout tree on the host (the
+    inverse of ``lm_params_from_numpy``): layer leaves stacked on a
+    leading ``layers`` axis; numpy arrays, except bf16 leaves, which
+    numpy cannot hold and stay CPU ``torch.bfloat16`` tensors
+    (``save_checkpoint`` writes them as the JAX package's bfloat16
+    leaves)."""
+    return _stack_named(dict(model.named_parameters()), model.cfg)
+
+
+def adamw_state_to_numpy(state: Dict[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """The train step's AdamW state (moments keyed by the ``LM``'s
+    parameter names) in the JAX package's layout: ``m`` and ``v`` as
+    ``lm_params_to_numpy`` lays out the weights, ``step`` an int32
+    scalar."""
+    return {"m": _stack_named(state["m"], cfg),
+            "v": _stack_named(state["v"], cfg),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def adamw_state_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                           device: Union[str, torch.device] = "cuda"
+                           ) -> Dict[str, Any]:
+    """The inverse of ``adamw_state_to_numpy`` on ``device``: the moments
+    in the dtype the tree holds them, the step an int32 scalar."""
+    dev = resolve_device(device)
+    return {"m": _unstack(tree["m"], cfg, dev),
+            "v": _unstack(tree["v"], cfg, dev),
+            "step": torch.tensor(int(_tensor(tree["step"])),
+                                 dtype=torch.int32, device=dev)}

@@ -3,7 +3,7 @@ serving engine (torch, on the GPU) and the paper's host engines.
 
 Pipeline (offline):
     graph, workload
-      -> mining.mine_frequent_patterns_deduped (§4)
+      -> mining.mine_frequent_patterns        (§4)
       -> selection.select_patterns            (§4.1, Algorithm 1)
       -> fragmentation.build_fragmentation    (§5, vertical | horizontal)
       -> allocation.allocate_fragments        (§6, Algorithm 2)
@@ -24,7 +24,8 @@ from .query import QueryGraph, find_embedding, is_subgraph_of
 from .workload import (Workload, class_template_probs,
                        generate_drifting_workload, generate_workload,
                        make_shape_queries, watdiv_templates)
-from .mining import FrequentPattern, frequent_properties, usage_matrix
+from .mining import (FrequentPattern, frequent_properties,
+                     mine_frequent_patterns, usage_matrix)
 from .matching import match_pattern
 from .selection import SelectionResult, select_patterns
 from .fragmentation import (Fragment, Fragmentation, build_fragmentation,
@@ -53,7 +54,8 @@ __all__ = [
     "Workload", "generate_workload", "watdiv_templates",
     "class_template_probs", "generate_drifting_workload",
     "make_shape_queries",
-    "FrequentPattern", "frequent_properties", "usage_matrix",
+    "FrequentPattern", "mine_frequent_patterns", "frequent_properties",
+    "usage_matrix",
     "match_pattern", "SelectionResult", "select_patterns",
     "Fragment", "Fragmentation", "build_fragmentation",
     "vertical_fragmentation", "horizontal_fragmentation",

@@ -30,6 +30,13 @@ class FrequentPattern:
         return self.pattern.num_edges
 
 
+def mine_frequent_patterns(workload: Workload, min_sup: int,
+                           max_edges: int = 6) -> List[FrequentPattern]:
+    """Return all frequent access patterns with acc(p) >= min_sup."""
+    uniq, weights = workload.dedup_normalized()
+    return mine_frequent_patterns_deduped(uniq, weights, min_sup, max_edges)
+
+
 def mine_frequent_patterns_deduped(uniq: Sequence[QueryGraph],
                                    weights: np.ndarray, min_sup: int,
                                    max_edges: int = 6) -> List[FrequentPattern]:

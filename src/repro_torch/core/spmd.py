@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -229,25 +229,45 @@ class SiteStore:
         per_dev = int(self.prop_dev_owned[:, prop].max(initial=0))
         return int(np.ceil(max(per_dev, 1) / 8) * 8)
 
+    def csr_arrays(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, np.ndarray, torch.Tensor]:
+        """The packed per-property tables as one tuple: subject-sorted
+        keys / payload, object-sorted keys / payload, the run offsets
+        (a host array: windows are sliced at static offsets) and the
+        owned-row flags.  Every store of this package is CSR-packed, so
+        unlike the reference's this is never ``None``."""
+        return (self.csr_sub_s, self.csr_sub_o, self.csr_obj_o,
+                self.csr_obj_s, self.csr_offs, self.owned)
+
     @staticmethod
     def from_fragmentation(graph: RDFGraph, frag: Fragmentation,
                            site_of: np.ndarray, num_sites: int,
                            include_cold: bool = True,
                            device: Union[str, torch.device] = "cuda"
                            ) -> "SiteStore":
-        """``build`` over the sites a fragment allocation gives: each
-        site holds its fragments' edges (overlapping fragments once)
-        and, with ``include_cold``, the cold fragments round-robin."""
-        per_site: List[np.ndarray] = []
-        for j in range(num_sites):
-            ids = [f.edge_ids for fi, f in enumerate(frag.fragments)
-                   if int(site_of[fi]) == j]
-            if include_cold:
-                ids += [f.edge_ids for k, f in enumerate(frag.cold_fragments)
-                        if k % num_sites == j]
-            per_site.append(np.unique(np.concatenate(ids))
-                            if ids else np.zeros(0, np.int64))
-        return SiteStore.build(graph, per_site, device=device)
+        """``build`` over the sites a fragment allocation gives
+        (``fragment_site_edge_ids``)."""
+        return SiteStore.build(
+            graph, fragment_site_edge_ids(frag, site_of, num_sites,
+                                          include_cold), device=device)
+
+
+def fragment_site_edge_ids(frag: Fragmentation, site_of: np.ndarray,
+                           num_sites: int, include_cold: bool = True
+                           ) -> List[np.ndarray]:
+    """Edge ids per site under a fragment allocation: each site holds
+    its fragments' edges (overlapping fragments once) and, with
+    ``include_cold``, the cold fragments round-robin."""
+    per_site: List[np.ndarray] = []
+    for j in range(num_sites):
+        ids = [f.edge_ids for fi, f in enumerate(frag.fragments)
+               if int(site_of[fi]) == j]
+        if include_cold:
+            ids += [f.edge_ids for k, f in enumerate(frag.cold_fragments)
+                    if k % num_sites == j]
+        per_site.append(np.unique(np.concatenate(ids))
+                        if ids else np.zeros(0, np.int64))
+    return per_site
 
 
 # ----------------------------------------------------------------------
@@ -417,6 +437,12 @@ def _var_col_trace(pattern: QueryGraph) -> Tuple[List[int], List[int]]:
             if e.src < 0:
                 var_cols.append(e.src)
     return var_cols, step_in_cols
+
+
+def pattern_var_order(pattern: QueryGraph) -> List[int]:
+    """Binding-table column order the match loop produces for this
+    pattern -- the same bookkeeping, host-side, without running it."""
+    return _var_col_trace(pattern)[0]
 
 
 @dataclasses.dataclass
@@ -723,6 +749,77 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
 
 
 # ----------------------------------------------------------------------
+# Functional matcher API (the reference's shard_map entry points)
+# ----------------------------------------------------------------------
+
+def _refuse_wildcards(pattern: QueryGraph) -> None:
+    if any(e.prop == PROP_VAR for e in pattern.edges):
+        raise NotImplementedError(
+            "SPMD matcher requires constant properties (wildcard "
+            "property labels would match the -1 padding)")
+
+
+def local_match(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
+                pattern: QueryGraph, capacity: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """Shard-local matching (no collectives) over one site's edge
+    columns, rows with ``p < 0`` being padding (as a reference
+    ``SiteStore``'s ``s[j]``, ``p[j]``, ``o[j]`` are padded).  The edges
+    are packed into a one-site ``SiteStore`` on the columns' device and
+    run through the match loop.  Returns (bindings (capacity, V),
+    valid, var_order); rows past ``capacity`` are dropped, as in the
+    reference."""
+    _refuse_wildcards(pattern)
+    keep = p >= 0
+    cols = [c[keep].cpu().numpy().astype(np.int32) for c in (s, p, o)]
+    n_vert = int(max(cols[0].max(initial=-1), cols[2].max(initial=-1))) + 1
+    graph = RDFGraph(cols[0], cols[1], cols[2], max(n_vert, 1),
+                     int(cols[1].max(initial=-1)) + 1)
+    store = SiteStore.build(graph, [np.arange(graph.num_edges)],
+                            device=s.device)
+    out = _match_sites(store, pattern, capacity)
+    return out.binds[0], out.valids[0], pattern_var_order(pattern)
+
+
+def make_spmd_matcher(pattern: QueryGraph, capacity: int
+                      ) -> Callable[[SiteStore], Tuple[torch.Tensor, ...]]:
+    """The match loop for ``pattern`` at one capacity as a function of a
+    ``SiteStore``, shipping bindings every join step: ``fn(store)``
+    returns the gathered binding tables (num_sites * capacity, V),
+    their validity mask, the per-site overflow row counts (num_sites,)
+    and the per-join-step decision and shipped-row vectors.  The
+    reference's factory takes a mesh and the store's arrays; here the
+    sites are the store's site axis and the windows come from the
+    store.  A non-zero overflow entry means that site's table filled:
+    retry at a higher capacity for an exact answer."""
+    _refuse_wildcards(pattern)
+
+    def fn(store: SiteStore) -> Tuple[torch.Tensor, ...]:
+        out = _match_sites(store, pattern, capacity)
+        dev = store.device
+        return (torch.cat(out.binds, 0), torch.cat(out.valids, 0),
+                out.overflow,
+                torch.tensor(out.decisions, dtype=_I32, device=dev),
+                torch.stack(out.shipped).to(_I32) if out.shipped
+                else torch.zeros(0, dtype=_I32, device=dev))
+
+    return fn
+
+
+def spmd_match(store: SiteStore, pattern: QueryGraph, capacity: int = 4096
+               ) -> Tuple[np.ndarray, List[int]]:
+    """Run the SPMD matcher over the store's sites (bindings shipped
+    every step) and return the deduped host-side binding rows and their
+    column order."""
+    bind, valid, _ovf, _dec, _rows = make_spmd_matcher(pattern,
+                                                       capacity)(store)
+    rows = bind[valid].cpu().numpy()
+    if rows.size:
+        rows = np.unique(rows, axis=0)
+    return rows, pattern_var_order(pattern)
+
+
+# ----------------------------------------------------------------------
 # SPMD execution engine
 # ----------------------------------------------------------------------
 
@@ -937,10 +1034,7 @@ class SpmdEngine(EngineBase):
         Raises ``NotImplementedError`` for wildcard properties and
         ``RuntimeError`` when ``max_capacity`` cannot hold the
         answer."""
-        if any(e.prop == PROP_VAR for e in query.edges):
-            raise NotImplementedError(
-                "SPMD matcher requires constant properties (wildcard "
-                "property labels would match the -1 padding)")
+        _refuse_wildcards(query)
         t0 = time.perf_counter()
         norm = query.normalize()
         # inside an _execute_batch group every member has the same

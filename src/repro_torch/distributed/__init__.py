@@ -1,7 +1,9 @@
-"""Distributed runtime utilities: straggler mitigation and the
-work-stealing queue the migration planner schedules through.  (The
-JAX package's elastic re-meshing belongs to training and is not
-ported yet.)"""
+"""Distributed runtime utilities: elastic re-planning after a failure
+(mesh shapes and the RDF allocation over the surviving sites),
+straggler mitigation and the work-stealing queue the migration planner
+schedules through."""
+from .elastic import MeshPlan, plan_mesh, replan_allocation
 from .straggler import CompletedItem, StragglerMitigator, WorkItem, WorkQueue
 
-__all__ = ["StragglerMitigator", "CompletedItem", "WorkItem", "WorkQueue"]
+__all__ = ["MeshPlan", "plan_mesh", "replan_allocation",
+           "StragglerMitigator", "CompletedItem", "WorkItem", "WorkQueue"]

@@ -542,7 +542,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (scale > 0) runs the warp-specialised wgmma + TMA kernel, the rest
     ``mma.sync`` (bf16) or FMAs (float32).  The card's result is a [B,
     Sq, Hq, D] buffer viewed as [B, Hq, Sq, D], so ``out.transpose(1,
-    2)`` (the model's merge of the heads) is contiguous."""
+    2)`` (the model's merge of the heads) is contiguous.
+
+    It has no backward, on either device: with grad mode on, a q, k or
+    v that requires grad is refused (``RuntimeError``), as ``jax.grad``
+    through the reference's Pallas kernel fails.  Training takes the
+    plain attention path (``use_flash_kernel=False``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "attention: the flash kernel has no backward; run it under "
+            "torch.no_grad() or train with use_flash_kernel=False (plain "
+            "attention)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or k.shape[1] == 0 or q.shape[1] % k.shape[1]:

@@ -1,2 +1,2 @@
-"""Launchers of the LM substrate: the forward and serve steps and the
-serve loop."""
+"""Launchers of the LM substrate: the train, forward and serve steps,
+the training loop and the serve loop."""

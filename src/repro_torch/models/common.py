@@ -5,17 +5,20 @@ Parameters are declared once as ``ParamDef`` trees (nested dicts), as in
 the JAX package; the modules of ``layers.py`` and ``lm.py`` register one
 ``nn.Parameter`` per definition and ``init_params`` fills them from an
 explicit ``torch.Generator``.  The JAX package's sharding rules engine
-and rematerialisation have no counterpart here: the port runs on one
-device and only serves.
+has no counterpart here: the port runs on one device.  Its
+rematerialisation does (``remat_policy`` / ``maybe_remat``): the model
+serves (``lm_apply``) and trains (``lm_forward``, ``lm_loss``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 # ======================================================================
@@ -28,7 +31,8 @@ class ModelConfig:
     to the dense transformer family that is ported.  The options of the
     families still to port (MoE, the sliding-window cache, ``qkv_bias``,
     ``sq_relu``, ``embed_inputs``) have no field: a config that sets one
-    is refused when it is made."""
+    is refused when it is made.  ``remat`` (none | full | dots) is
+    read by the training forward only."""
     name: str = "model"
     family: str = "dense"          # dense | moe | rwkv | hybrid
     num_layers: int = 2
@@ -47,6 +51,7 @@ class ModelConfig:
     # numerics
     dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-5
+    remat: str = "none"            # none | full | dots
     use_flash_kernel: bool = False  # attention through kernels.ops
 
     @property
@@ -167,3 +172,53 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return torch.tanh(logits / cap) * cap
+
+
+# ======================================================================
+# Rematerialisation
+# ======================================================================
+
+# the 2-D matmuls: the reference's ``checkpoint_dots_with_no_batch_dims``
+# saves the dots without batch dimensions (a [B, S, D] @ [D, F] product
+# reaches aten as ``mm``); batched attention products are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _nothing_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(name: str) -> Optional[Callable[..., CheckpointPolicy]]:
+    """The selective-checkpoint policy of a ``remat`` name: ``None`` for
+    "none" (everything saved), nothing saved for "full", the 2-D
+    matmul outputs saved for "dots"."""
+    if name == "none":
+        return None
+    if name == "full":
+        return _nothing_saveable
+    if name == "dots":
+        return _dots_saveable
+    raise ValueError(name)
+
+
+def maybe_remat(fn: Callable, name: str) -> Callable:
+    """``fn`` recomputed in the backward pass by ``remat_policy(name)``:
+    "full" is ``torch.utils.checkpoint.checkpoint`` (only the inputs
+    kept), "dots" selective activation checkpointing."""
+    policy = remat_policy(name)
+    if policy is None:
+        return fn
+    kw = {}
+    if name == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            policy)
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat

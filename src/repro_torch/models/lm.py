@@ -6,17 +6,24 @@ leading ``layers`` axis (it is what ``convert.lm_params_from_numpy``
 reads and what ``param_count`` counts); the module ``LM`` holds the
 same parameters with one ``Block`` per layer in a ``ModuleList``, the
 reference's ``lax.scan`` over layers becoming a Python loop.
+
+``lm_apply`` and ``lm_decode`` serve under ``torch.no_grad``;
+``lm_forward`` is the same forward keeping the autograd graph, each
+block wrapped by ``maybe_remat(cfg.remat)``, and ``lm_loss`` trains
+through it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .common import (ModelConfig, ParamDef, init_params, register_params,
-                     rms_norm, softcap)
+from .common import (ModelConfig, ParamDef, init_params, maybe_remat,
+                     register_params, rms_norm, softcap)
 from .layers import (MLP, Attention, attn_apply, attn_decode, attn_defs,
                      make_kv_cache, mlp_apply, mlp_defs)
 
@@ -115,6 +122,33 @@ def lm_apply(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     for blk in params.blocks:
         x = _block(cfg, blk, x, positions)
     return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+def lm_forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
+               positions: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lm_apply`` keeping the autograd graph (training): each block
+    runs under ``maybe_remat(cfg.remat)``.  Returns (logits [B, S, V],
+    aux_loss)."""
+    x = F.embedding(inputs.long(), params.embed)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for blk in params.blocks:
+        x = maybe_remat(functools.partial(_block, cfg, blk),
+                        cfg.remat)(x, positions)
+    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+            targets: torch.Tensor, aux_weight: float = 0.01
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy (the log-softmax in float32) plus
+    ``aux_weight`` times the auxiliary loss."""
+    logits, aux = lm_forward(cfg, params, tokens)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean() + aux_weight * aux
 
 
 # ----------------------------------------------------------------------

@@ -5,6 +5,7 @@ ROADMAP item that covers it.
   defs(cfg)                          -> ParamDef tree (stacked layers)
   build(cfg, device, seed)           -> the parameter module
   apply(cfg, params, inputs)         -> (logits, aux)      [prefill]
+  loss(cfg, params, inputs, targets) -> scalar loss        [train]
   init_cache(cfg, batch, max_len, device) -> decode state
   decode(cfg, params, token, cache, pos)  -> (logits, cache)
 """
@@ -22,13 +23,14 @@ class ModelApi:
     defs: Callable
     build: Callable
     apply: Callable
+    loss: Callable
     init_cache: Callable
     decode: Callable
 
 
 _REGISTRY: Dict[str, ModelApi] = {
     "dense": ModelApi(_lm.lm_defs, _lm.build_lm, _lm.lm_apply,
-                      _lm.lm_init_cache, _lm.lm_decode),
+                      _lm.lm_loss, _lm.lm_init_cache, _lm.lm_decode),
 }
 
 def get_api(cfg: ModelConfig) -> ModelApi:

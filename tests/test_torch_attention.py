@@ -202,3 +202,53 @@ def test_attention_cpu_output_layout_and_head_merge(dtype, no_launches):
     assert torch.equal(got, want)
     merged = got.transpose(1, 2).reshape(B, S, Hq * D)
     assert torch.equal(merged, want.transpose(1, 2).reshape(B, S, Hq * D))
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_attention_refuses_autograd(needs_grad, no_launches):
+    """The flash kernel has no backward (nor has the reference's: jax.grad
+    through its Pallas kernel fails), so with grad mode on a q, k or v
+    that requires grad is refused on both devices -- on the card its
+    output would silently carry no gradient."""
+    q, k, v = (_torch(a) for a in _inputs(3, 1, 4, 2, 32, 32, 16,
+                                          "float32"))
+    dict(q=q, k=k, v=v)[needs_grad].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.attention(q, k, v)
+
+
+def test_attention_under_no_grad_is_unchanged(no_launches):
+    """Serving runs under ``torch.no_grad()``: inputs that require grad
+    give the plain version's output, with no graph."""
+    from repro_torch.kernels import ref
+    q, k, v = (_torch(a).requires_grad_(True)
+               for a in _inputs(4, 1, 4, 2, 48, 48, 16, "float32"))
+    with torch.no_grad():
+        got = ops.attention(q, k, v)
+        want = ref.attention_ref(q, k, v, True, None, None)
+    assert got.grad_fn is None
+    assert torch.equal(got, want)
+
+
+def test_training_forward_through_the_flash_kernel_is_refused(no_launches):
+    """A loss through ``use_flash_kernel=True`` raises; the same config
+    on plain attention trains, and serving through the kernel (under
+    ``lm_apply``'s ``no_grad``) gives the plain forward's logits."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.models import build_lm, get_api
+    cfg = dataclasses.replace(qwen3_1_7b.SMOKE, dtype=torch.float32)
+    flash = dataclasses.replace(cfg, use_flash_kernel=True)
+    model = build_lm(cfg, device="cpu", seed=1)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        get_api(flash).loss(flash, model, toks, toks)
+    loss = get_api(cfg).loss(cfg, model, toks, toks)
+    assert torch.isfinite(loss) and loss.grad_fn is not None
+    served, _ = get_api(flash).apply(flash, model, toks)
+    plain, _ = get_api(cfg).apply(cfg, model, toks)
+    torch.testing.assert_close(served, plain, atol=1e-5, rtol=1e-5)

@@ -64,3 +64,22 @@ def test_ledger_failures_reports_a_broken_ledger(port_runs):
     assert any("totals" in b for b in bad)
     assert "spmd_comm: planned above naive" in bad
     assert "spmd_comm: capacity retries on the planned session" in bad
+
+
+def test_compare_ledgers_fails_only_on_queries_without_a_retry(capsys):
+    """The smoke's per-query comparison of the card's ledger with the
+    plain versions': a difference on a query that retried on neither
+    side fails; a retried query that differs is printed, not failed."""
+    qs = [J.QueryGraph.make([(-1, -2, p)]) for p in range(3)]
+    chip_smoke.compare_ledgers(qs, [10, 20, 30], [0, 1, 0],
+                               [10, 25, 30], [0, 1, 0])
+    out = capsys.readouterr().out
+    assert "2 queries without a retry equal; 1 retried" in out
+    assert "1 of them differ, by -5 bytes" in out
+    assert "ledger differs: query 1" in out
+    with pytest.raises(SystemExit, match="query 2 .* made no retry"):
+        chip_smoke.compare_ledgers(qs, [10, 20, 31], [0, 1, 0],
+                                   [10, 20, 30], [0, 1, 0])
+    with pytest.raises(SystemExit, match="query 0"):
+        chip_smoke.compare_ledgers(qs, [10, 20, 30], [0, 0, 0],
+                                   [11, 20, 30], [0, 0, 0])

@@ -126,7 +126,8 @@ _PORT_CONSTANTS = {"REQUIRED_METRICS": "repro.obs.export",
                    "BACKENDS": "repro.core.session",
                    "BYTES_PER_EDGE": "repro.online.migration"}
 _SWAPPED_PACKAGES = ("repro.obs", "repro.serve", "repro.core",
-                     "repro.online", "repro.checkpoint", "repro.distributed")
+                     "repro.online", "repro.checkpoint", "repro.distributed",
+                     "repro.data")
 
 
 def reference_unit_tests(module):
@@ -149,11 +150,25 @@ def _names_used(fn):
     return names
 
 
+def swap_imports_in_body(fn, monkeypatch):
+    """Point every module of the swapped packages that ``fn`` imports in
+    its own body (``from repro.data import ...``) at the port's module
+    of the same path, through ``sys.modules``, while the test runs.
+    Returns the module names swapped."""
+    swapped = set()
+    for name in _names_used(fn):
+        if name.startswith(_SWAPPED_PACKAGES):
+            port = importlib.import_module("repro_torch" + name[len("repro"):])
+            monkeypatch.setitem(sys.modules, name, port)
+            swapped.add(name)
+    return swapped
+
+
 def swap_to_port(module, monkeypatch):
     """Bind every name ``module`` imported from the JAX package's
     ``obs`` / ``serve`` / ``core`` / ``online`` / ``checkpoint`` /
-    ``distributed`` to the port's module of the same path.  Returns
-    (the names swapped, the names the port lacks)."""
+    ``distributed`` / ``data`` to the port's module of the same path.
+    Returns (the names swapped, the names the port lacks)."""
     swapped, missing = set(), set()
     for attr, val in list(vars(module).items()):
         src = _PORT_CONSTANTS.get(attr) or getattr(val, "__module__", None)
@@ -238,12 +253,15 @@ def run_reference_test(module, name, package, monkeypatch, tmp_path,
     package's swapped packages bound to ``package``'s module of the
     same path (``"repro"`` leaves it as it is, ``"repro_torch"`` swaps
     in the port and resolves the port's devices to the CPU), so one
-    scenario checks both implementations.  Every such name the test
-    reads must exist in the port.  ``fixtures`` supplies the test's
-    fixture arguments other than ``tmp_path``, built for ``package``."""
+    scenario checks both implementations; so are the modules the test
+    imports in its own body (``swap_imports_in_body``).  Every such name
+    the test reads must exist in the port.  ``fixtures`` supplies the
+    test's fixture arguments other than ``tmp_path``, built for
+    ``package``."""
     fn = getattr(module, name)
     if package == "repro_torch":
         swapped, missing = swap_to_port(module, monkeypatch)
+        swapped |= swap_imports_in_body(fn, monkeypatch)
         assert swapped, f"{module.__name__} imports nothing to swap"
         unported = missing & _names_used(fn)
         assert not unported, f"{name} reads names the port lacks: {unported}"
