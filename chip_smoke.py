@@ -121,7 +121,9 @@ Phases, each fatal on any error or mismatch:
    the card, held to their properties and to the JAX package's totals.
 8. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
-   bf16, rows with no visible key, one layer at 1 x 32768), each held to
+   bf16, the model paths' head layouts (g = 8, g = 16, MHA at D 64, a
+   window inside S), rows with no visible key, one layer at 1 x 32768),
+   each held to
    the JAX package's elementwise tolerance and to a row-relative bound,
    which controls (an all-zero output, one KV tile dropped) must fail;
    qwen3-1.7b built at its published width and depth with seeded random
@@ -132,6 +134,26 @@ Phases, each fatal on any error or mismatch:
    requests (prompt 128, gen 32); the kernel-backed forward over the
    served prompts against the serve step's logits at the last prompt
    token; a profile of the forward and of 8 decode steps.
+   Then MoE: qwen2-moe-a2.7b at its published width and depth (24
+   layers, 14,315,735,040 parameters, bf16, seeded weights); the
+   forward at 2 x 4096 on the plain config (flat dispatch, C = 688)
+   with 24 flash launches, every layer's kernel output held against the
+   plain version on its q, k, v and every layer's largest expert load
+   and dropped assignments printed; against the same forward on plain
+   attention replaying the kernel forward's expert choices (logits
+   within 0.25; a token-layer whose own choice differs must be a
+   near-tie); the production profile (batched dispatch, C = 344 per
+   sequence); batched against flat at a capacity no expert can fill
+   (factor num_experts / top_k: the same experts in every layer, logits
+   within 0.25); ``serve()`` of 4 x (128 + 32); the forward against the
+   decode steps at every prompt position at that capacity, decode
+   replaying the forward's routing.  Then the arch sweep:
+   mixtral-8x7b (1 x 8192, its 4096 window masking), qwen2.5-3b,
+   nemotron-4-15b, musicgen-medium, pixtral-12b and llama3-405b (1 x
+   4096) at full width with 2 layers: the same forward checks with 2
+   launches each, a short ``serve()``, forward against decode steps;
+   mixtral's rolling cache through 4096 + 64 decode steps, each step
+   past the wrap against the windowed forward.
 9. train: ``ops.attention`` refuses a q that requires grad (no launch);
    one float32 train step at qwen3-1.7b's width with 2 layers on the
    card and on the CPU from the same weights and batches (loss and
@@ -147,7 +169,8 @@ Phases, each fatal on any error or mismatch:
    The launch counts are set to 0 before the refusal and read after
    the ninth step: ``flash_attention``'s ``paths.train`` is that count.
 10. the kernels as one JSON line (each with the path it launched on and
-   its launches there, and ``paths``: launches per path, the join
+   its launches there, and ``paths``: launches per path (flash on
+   ``lm``, ``moe``, ``archs`` and ``train``), the join
    kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
    ``adaptive``, ``horizontal``, ``shape`` and ``warp``), the card
    line, and last the result.
@@ -224,6 +247,14 @@ ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, None),
               (1, 4, 4, 128, 384, 64, True, None),
               (1, 8, 2, 512, 512, 128, True, None),
               (1, 4, 4, 256, 256, 64, True, 64)]
+# the model paths' head layouts at a small S: g = 8 (qwen2.5-3b, 16
+# query heads over 2), g = 16 (llama3-405b, 128 over 8), MHA at D 64
+# (musicgen-medium, 24 of 24) and a 512-key window inside S = 1024
+# (mixtral's 32 over 8)
+ATTN_MODEL_CASES = [(1, 16, 2, 512, 512, 128, True, None),
+                    (1, 128, 8, 256, 256, 128, True, None),
+                    (1, 24, 24, 512, 512, 64, True, None),
+                    (1, 32, 8, 1024, 1024, 128, True, 512)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}   # atol = rtol
 # The JAX tolerance was set for its sweep (S <= 512), where outputs are
 # about 10x larger than at the model's lengths: at S = 32768 a row reads
@@ -2801,7 +2832,7 @@ def attention_phase(dev: str = "cuda") -> dict:
                    ref.attention_ref(q, _drop_kv_tile(k, 0),
                                      _drop_kv_tile(v, 0)),
                    torch.bfloat16, f"model shape {shape}")
-    for case in ATTN_CASES + ATTN_EXTRA:
+    for case in ATTN_CASES + ATTN_MODEL_CASES + ATTN_EXTRA:
         for dtype in (torch.float32, torch.bfloat16):
             check(qkv(*case[:6], dtype), case[7], f"{case} {dtype}",
                   causal=case[6])
@@ -3019,7 +3050,7 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
     # the kernel-backed forward over the served prompts against the
     # serve step's logits at the last prompt token
     prompts = torch.from_numpy(make_prompts(
-        cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)).to(dev)
+        cfg, SERVE_BATCH, SERVE_PROMPT, 0)).to(dev)
     last = forward(model, prompts)[:, -1]
     api = get_api(cfg)
     cache = api.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
@@ -3039,6 +3070,465 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
           f"in the LM phase ({card})", flush=True)
     rec["launches"] = launches["flash_attention"]
     return rec
+
+
+# ----------------------------------------------------------------------
+# MoE phase and the arch sweep
+# ----------------------------------------------------------------------
+
+# qwen2-moe-a2.7b at its published width and depth (24 layers, 60 routed
+# experts top-4 and 4 shared, bf16, seeded weights): the forward at 2 x
+# 4096 (cut from prefill_32k's 32 x 32768), serve() of 4 x (128 + 32)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_BATCH, MOE_SEQ = 2, 4096
+
+
+def ample(cfg):
+    """``cfg`` at a capacity no expert can fill: factor num_experts /
+    top_k makes C at least the group's token count, so the dispatches
+    must agree and a forward drops what decode keeps: nothing.  (The
+    reference's MoE tests use 8.0, which is ample at their sizes; with
+    random weights one of qwen2-moe's 60 experts took 5,437 of 8,192
+    tokens, past 8.0's C = 4,376.)"""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+# Routing replay.  Two runs that compute a router's input in another
+# order (flash against plain attention, a forward against decode steps)
+# can send a token whose K-th and (K+1)-th router probabilities nearly
+# tie to other experts.  With random weights the router ties often, and
+# a capacity cut hands one token's change on to every later token of
+# its experts, so past the first layers the two runs would compare two
+# routings (PERF.md, PR 22).  The second run therefore replays the
+# first's expert choices, weighted by its own router probabilities;
+# every position's logits are held to LOGIT_TOL, and every token-layer
+# whose own choice would have differed must be a near-tie there: a
+# margin p_K - p_K+1 under ROUTING_TIE.
+ROUTING_TIE = 2.0 ** -10
+# the other published archs at full width with 2 layers: sequence of
+# the flash forward (mixtral's 4096-key window masks at 8192)
+SWEEP_ARCHS = {"mixtral-8x7b": 8192, "qwen2.5-3b": 4096,
+               "nemotron-4-15b": 4096, "musicgen-medium": 4096,
+               "pixtral-12b": 4096, "llama3-405b": 4096}
+SWEEP_LAYERS = 2
+SWEEP_BATCH, SWEEP_PROMPT, SWEEP_GEN = 4, 16, 8
+# mixtral's rolling cache: decode steps past its window, every step
+# after the wrap held to the windowed forward
+ROLL_EXTRA = 64
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Wrap the LM's ``moe_apply``: each call (one MoE layer) appends its
+    expert ids ``idx`` [R, T, K], its largest expert load, capacity and
+    dropped assignments, from ``moe_routing`` (what ``moe_apply`` routes
+    with); the output is not touched."""
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.layers import moe_routing
+    records: List[dict] = []
+    inner = tlm.moe_apply
+
+    def logged(cfg, p, h, *args, **kw):
+        r = moe_routing(cfg, p, h, *args, **kw)
+        records.append({"idx": r["idx"], "max_load": int(r["loads"].max()),
+                        "capacity": r["capacity"],
+                        "dropped": int((~r["keep"]).sum())})
+        return inner(cfg, p, h, *args, **kw)
+
+    tlm.moe_apply = logged
+    try:
+        yield records
+    finally:
+        tlm.moe_apply = inner
+
+
+@contextlib.contextmanager
+def replayed_routing(choices: List[torch.Tensor]):
+    """Each routing (one MoE layer's ``layers._route``) takes the next
+    [R, T, K] expert ids of ``choices`` in place of its own top-k, each
+    weighted by its own router probability, renormalised as ``_route``
+    does.  Yields the token-layers routed, those whose own choice (as a
+    set) differed and the largest router margin p_K - p_K+1 among them
+    (device tensors until the block ends)."""
+    from repro_torch.models import layers
+    inner = layers._route
+    it = iter(choices)
+    stats = {"routed": 0, "differ": 0, "max_margin": 0.0}
+
+    def replay(cfg, p, x, expert_perm):
+        probs, own, _w = inner(cfg, p, x, expert_perm)
+        idx = next(it)
+        if idx.shape != own.shape:
+            fail(f"routing replay: ids {tuple(idx.shape)} for a routing of "
+                 f"{tuple(own.shape)}")
+        K = cfg.top_k
+        top = probs.topk(K + 1, dim=-1).values
+        differ = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+        stats["routed"] += differ.numel()
+        stats["differ"] = stats["differ"] + differ.sum()
+        stats["max_margin"] = torch.maximum(
+            torch.as_tensor(stats["max_margin"], device=probs.device),
+            torch.where(differ, top[..., K - 1] - top[..., K], 0.0).max())
+        vals = probs.gather(-1, idx)
+        return probs, idx, vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    layers._route = replay
+    try:
+        yield stats
+    finally:
+        layers._route = inner
+    if next(it, None) is not None:
+        fail("routing replay: choices left over")
+    stats["differ"] = int(stats["differ"])
+    stats["max_margin"] = float(stats["max_margin"])
+
+
+def replay_line(stats: dict, what: str) -> str:
+    """Fail unless every token-layer whose own choice differed was a
+    near-tie; the summary for the log."""
+    if not stats["routed"]:
+        return "no MoE layer"
+    if stats["max_margin"] >= ROUTING_TIE:
+        fail(f"{what}: a token's own expert choice differs from the "
+             f"replayed one at a router margin of {stats['max_margin']} "
+             f"(not a near-tie under {ROUTING_TIE})")
+    return (f"routing replayed, {stats['differ']} of {stats['routed']} "
+            f"token-layers would have chosen otherwise, at margins up to "
+            f"{stats['max_margin']:.2e}")
+
+
+@contextlib.contextmanager
+def checked_attention(what: str):
+    """Hold every ``ops.attention`` call (each layer of a forward) against
+    the plain version on the same q, k, v (``_attn_close``); yields the
+    list of (largest absolute, largest row-relative) errors."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    real = ops.attention
+    gaps: List[tuple] = []
+
+    def checked(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        gaps.append(_attn_close(out, ref.attention_ref(q, k, v, **kw),
+                                q.dtype, f"{what}, layer {len(gaps)}"))
+        return out
+
+    with mock.patch.object(ops, "attention", checked):
+        yield gaps
+
+
+def _gaps_line(gaps: List[tuple]) -> str:
+    return (f"every layer's kernel output against the plain version on its "
+            f"q, k, v: max abs error {max(g[0] for g in gaps):.3e}, max "
+            f"row-relative error {max(g[1] for g in gaps):.3e}")
+
+
+def hold_logits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """The largest absolute difference of two runs' logits [N, V]; fails
+    past LOGIT_TOL."""
+    diff = max(float((a[i:i + 256].float() - b[i:i + 256].float()).abs()
+                     .max()) for i in range(0, a.shape[0], 256))
+    if not diff <= LOGIT_TOL:
+        fail(f"{what}: logits max abs difference {diff} (limit "
+             f"{LOGIT_TOL})")
+    return diff
+
+
+def _layer_loads(records: List[dict]) -> str:
+    return " ".join(f"{r['max_load']}/{r['capacity']}:{r['dropped']}"
+                    for r in records)
+
+
+def _step_choices(records: List[dict], B: int, S: int) -> List[torch.Tensor]:
+    """A forward's routing over B x S tokens (one record per layer) as the
+    choices of decode steps 0 to S - 1, layer by layer: [1, B, K] ids."""
+    per_layer = [r["idx"].reshape(B, S, -1) for r in records]
+    return [idx[:, t][None] for t in range(S) for idx in per_layer]
+
+
+def _decode_all(cfg, model, prompts, dev, start: int = 0) -> torch.Tensor:
+    """Decode steps over every position of ``prompts`` ([B, S] or [B, S,
+    D]) from an empty cache: the logits [S - start, B, V] of the steps
+    from ``start``."""
+    from repro_torch.models import get_api
+    api = get_api(cfg)
+    B, S = prompts.shape[:2]
+    cache = api.init_cache(cfg, B, S, dev)
+    out = []
+    for t in range(S):
+        logits, cache = api.decode(cfg, model, prompts[:, t], cache, t)
+        if t >= start:
+            out.append(logits)
+    return torch.stack(out)
+
+
+def moe_phase(card: str, dev: str = "cuda") -> int:
+    """qwen2-moe-a2.7b at published width and depth on the card: the
+    flash forward on the plain config (flat dispatch) with 24 kernel
+    launches, every layer's attention held against the plain version and
+    every layer's expert loads; against plain attention; the production
+    profile (batched dispatch); batched against flat at ample capacity;
+    ``serve()``; the forward against the decode steps' logits at every
+    prompt position.  Returns the forward's flash launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import build_lm, param_count
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.lm import lm_defs
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(spec.config, use_flash_kernel=True)
+    t0 = time.perf_counter()
+    model = build_lm(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"moe: {cfg.name}, param_count={param_count(lm_defs(cfg))}, "
+          f"{nbytes} bytes of weights, built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    N = MOE_BATCH * MOE_SEQ
+
+    def flat(logits):
+        return logits.reshape(-1, logits.shape[-1])
+
+    forward = make_forward_step(cfg)
+    ops.reset_launches()
+    with checked_attention("MoE forward") as gaps, \
+            routing_log() as flash_r:
+        logits = forward(model, toks)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print(f"launches on the MoE forward: {launches}; {_gaps_line(gaps)}",
+          flush=True)
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} times "
+             f"in a {cfg.num_layers}-layer MoE forward")
+    if logits.shape != (MOE_BATCH, MOE_SEQ, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"MoE forward logits: shape {tuple(logits.shape)} or "
+             f"non-finite")
+    print(f"moe forward, flat dispatch (C = {moe_capacity(cfg, N)}, mean "
+          f"load {N * cfg.top_k / cfg.num_experts:.1f}), largest expert "
+          f"load / C : dropped assignments (of {N * cfg.top_k}) per layer: "
+          f"{_layer_loads(flash_r)}", flush=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    ops.reset_launches()
+    with replayed_routing([r["idx"] for r in flash_r]) as st:
+        plain_logits = make_forward_step(plain_cfg)(model, toks)
+    if any(ops.LAUNCHES.values()):
+        fail(f"kernels launched in the plain MoE forward: {ops.LAUNCHES}")
+    what = "moe forward, kernel vs plain attention"
+    diff = hold_logits(flat(logits), flat(plain_logits), what)
+    print(f"{what} ({replay_line(st, what)}): logits max abs difference "
+          f"{diff:.4f}", flush=True)
+    del plain_logits
+    t_fwd = host_s(lambda: forward(model, toks))
+    print(f"moe forward ({card}): {MOE_BATCH}x{MOE_SEQ} tokens in "
+          f"{t_fwd:.3f} s ({N / t_fwd:.1f} tok/s, warm, host clock)",
+          flush=True)
+    device_profile(lambda: forward(model, toks),
+                   f"moe forward {MOE_BATCH}x{MOE_SEQ}")
+
+    # the production profile: batched dispatch, a capacity per sequence
+    prod = dataclasses.replace(spec.optimized_config(), use_flash_kernel=True)
+    with routing_log() as prod_r:
+        prod_logits = make_forward_step(prod)(model, toks)
+    diff = float(max((prod_logits[i].float() - logits[i].float()).abs().max()
+                     for i in range(MOE_BATCH)))
+    print(f"moe forward, production profile (batched, C = "
+          f"{moe_capacity(prod, MOE_SEQ)} per sequence), loads per layer "
+          f"{_layer_loads(prod_r)}; logits max abs difference from the flat "
+          f"dispatch at the published capacity factor {cfg.capacity_factor}"
+          f": {diff:.4f} (not held: other tokens are dropped)", flush=True)
+    del prod_logits, logits, prod_r, flash_r
+    wide, wide_prod = ample(cfg), ample(prod)
+    with routing_log() as flat_r:
+        flat_logits = make_forward_step(wide)(model, toks)
+    with routing_log() as prod_r:
+        prod_logits = make_forward_step(wide_prod)(model, toks)
+    if any(r["dropped"] for r in flat_r + prod_r):
+        fail("moe: an assignment dropped at the ample capacity")
+    K = cfg.top_k
+    same = [bool(torch.equal(a["idx"].reshape(-1, K), b["idx"].reshape(-1, K)))
+            for a, b in zip(flat_r, prod_r)]
+    what = (f"moe forward at capacity factor {wide.capacity_factor} (C = "
+            f"{moe_capacity(wide, N)} flat, {moe_capacity(wide, MOE_SEQ)} "
+            f"batched), batched vs flat dispatch")
+    if not all(same):
+        fail(f"{what}: the routing differs in layers "
+             f"{[i for i, s in enumerate(same) if not s]}")
+    diff = hold_logits(flat(prod_logits), flat(flat_logits), what)
+    print(f"{what}: the same experts in every layer, logits max abs "
+          f"difference {diff:.4f}", flush=True)
+    del flat_logits, prod_logits, flat_r, prod_r
+
+    r = serve(MOE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              gen_len=SERVE_GEN, smoke=False, seed=0, device=dev,
+              model=model)
+    if r.tokens.shape != (SERVE_BATCH, SERVE_GEN) or r.tokens.min() < 0 \
+            or r.tokens.max() >= cfg.vocab_size:
+        fail(f"moe serve tokens: shape {r.tokens.shape}, range "
+             f"[{r.tokens.min()}, {r.tokens.max()}]")
+    print(f"moe serve ({card}): {SERVE_BATCH} requests, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}: prefill {r.prefill_sec:.3f} s "
+          f"({SERVE_BATCH * SERVE_PROMPT / r.prefill_sec:.1f} tok/s), decode "
+          f"{r.decode_sec:.3f} s ({r.tokens_per_sec:.1f} tok/s)", flush=True)
+
+    # the forward over the served prompts against the serve step's logits
+    # at every prompt position, at the ample capacity (decode at B = 4
+    # never drops); at the published one the forward drops, so it is
+    # printed beside its drops
+    prompts = torch.from_numpy(make_prompts(
+        cfg, SERVE_BATCH, SERVE_PROMPT, 0)).to(dev)
+    n = SERVE_BATCH * SERVE_PROMPT
+    with routing_log() as fr:
+        full = make_forward_step(wide)(model, prompts).transpose(0, 1)
+    with replayed_routing(_step_choices(fr, SERVE_BATCH, SERVE_PROMPT)) as st:
+        steps = _decode_all(wide, model, prompts, dev)
+    what = f"moe forward vs serve step at capacity factor {wide.capacity_factor}"
+    diff = hold_logits(full.reshape(n, -1), steps.reshape(n, -1), what)
+    print(f"{what}, all {n} prompt positions ({replay_line(st, what)}): "
+          f"logits max abs difference {diff:.4f}", flush=True)
+    with routing_log() as fr:
+        last = make_forward_step(cfg)(model, prompts)[:, -1]
+    print(f"moe forward at the published capacity factor "
+          f"{cfg.capacity_factor} (C = {moe_capacity(cfg, n)}, mean load "
+          f"{n * cfg.top_k / cfg.num_experts:.1f}; dropped per layer "
+          f"{[x['dropped'] for x in fr]}) vs the serve step at the last "
+          f"prompt token: logits max abs difference "
+          f"{float((last.float() - steps[-1].float()).abs().max()):.4f} "
+          f"(not held)", flush=True)
+    del steps, full, last, model
+    torch.cuda.synchronize()
+    print(f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes "
+          f"in the MoE phase ({card}); {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def _sweep_inputs(cfg, B: int, S: int, gen: torch.Generator, dev: str):
+    if cfg.embed_inputs:
+        return torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def rolling_cache_check(cfg, model, dev: str) -> str:
+    """mixtral's rolling cache at full width: one prompt of window +
+    ``ROLL_EXTRA`` tokens through decode steps at the ample capacity
+    (the cache holds the window, so it wraps; the steps replay the
+    forward's routing), every step past the wrap against the windowed
+    flash forward of the same tokens."""
+    from repro_torch.launch.steps import make_forward_step
+    wide = ample(cfg)
+    S = cfg.window + ROLL_EXTRA
+    gen = torch.Generator(device=dev).manual_seed(7)
+    toks = _sweep_inputs(cfg, 1, S, gen, dev)
+    with routing_log() as fr:
+        full = make_forward_step(wide)(model, toks)[0, cfg.window:]
+    t0 = time.perf_counter()
+    with replayed_routing(_step_choices(fr, 1, S)) as st:
+        steps = _decode_all(wide, model, toks, dev, start=cfg.window)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    what = "rolling cache vs the windowed forward"
+    diff = hold_logits(full, steps[:, 0], what)
+    return (f"{what}: {S} decode steps in {t_steps:.1f} s, the last "
+            f"{ROLL_EXTRA} past the {cfg.window}-slot wrap, "
+            f"{replay_line(st, what)}, logits max abs difference "
+            f"{diff:.4f}")
+
+
+def arch_sweep_phase(card: str, dev: str = "cuda") -> int:
+    """The other six published archs at full width, ``SWEEP_LAYERS``
+    layers: a flash forward (2 launches, each layer held against the
+    plain version on its q, k, v) against plain attention, ``serve()``,
+    the forward against the decode steps' logits at every prompt
+    position, and mixtral's rolling cache.  Returns the flash launches of
+    the counted forwards."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import build_lm, param_count
+    from repro_torch.models.lm import lm_defs
+
+    total = 0
+    for arch, seq in SWEEP_ARCHS.items():
+        t_arch = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(get_arch(arch).config,
+                                  num_layers=SWEEP_LAYERS,
+                                  use_flash_kernel=True)
+        model = build_lm(cfg, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = _sweep_inputs(cfg, 1, seq, gen, dev)
+        forward = make_forward_step(cfg)
+        ops.reset_launches()
+        with checked_attention(arch) as gaps, routing_log() as fr:
+            logits = forward(model, x)
+        torch.cuda.synchronize()
+        n = ops.LAUNCHES["flash_attention"]
+        if n != SWEEP_LAYERS:
+            fail(f"{arch}: flash_attention launched {n} times in a "
+                 f"{SWEEP_LAYERS}-layer forward")
+        total += n
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{arch}: non-finite forward logits")
+        t_fwd = host_s(lambda: forward(model, x))
+        with replayed_routing([r["idx"] for r in fr]) as st:
+            plain = make_forward_step(dataclasses.replace(
+                cfg, use_flash_kernel=False))(model, x)
+        what = f"{arch} kernel vs plain attention"
+        lines = [f"{_gaps_line(gaps)}; kernel vs plain attention "
+                 f"({replay_line(st, what)}): logits max abs difference "
+                 f"{hold_logits(logits[0], plain[0], what):.4f}"]
+        del logits, plain
+        r = serve(arch, batch=SWEEP_BATCH, prompt_len=SWEEP_PROMPT,
+                  gen_len=SWEEP_GEN, smoke=False, seed=0, device=dev,
+                  model=model)
+        if r.tokens.shape != (SWEEP_BATCH, SWEEP_GEN) \
+                or r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            fail(f"{arch} serve tokens: shape {r.tokens.shape}")
+        wide = ample(cfg)
+        prompts = torch.from_numpy(make_prompts(
+            cfg, SWEEP_BATCH, SWEEP_PROMPT, 0)).to(dev)
+        with routing_log() as fr:
+            full = make_forward_step(wide)(model, prompts).transpose(0, 1)
+        with replayed_routing(_step_choices(fr, SWEEP_BATCH,
+                                            SWEEP_PROMPT)) as st:
+            steps = _decode_all(wide, model, prompts, dev)
+        k = SWEEP_BATCH * SWEEP_PROMPT
+        what = f"{arch} forward vs decode steps"
+        lines.append(f"forward vs decode steps at all {k} prompt positions "
+                     f"({replay_line(st, what)}): logits max abs difference "
+                     f"{hold_logits(full.reshape(k, -1), steps.reshape(k, -1), what):.4f}")
+        del steps, full
+        if cfg.window is not None:
+            lines.append(rolling_cache_check(cfg, model, dev))
+        torch.cuda.synchronize()
+        print(f"arch {arch} ({card}): {SWEEP_LAYERS} of "
+              f"{get_arch(arch).config.num_layers} layers, "
+              f"{param_count(lm_defs(cfg))} parameters; forward 1x{seq} "
+              f"{t_fwd:.3f} s ({seq / t_fwd:.1f} tok/s), {n} flash launches; "
+              f"serve {SWEEP_BATCH}x({SWEEP_PROMPT}+{SWEEP_GEN}) decode "
+              f"{r.tokens_per_sec:.1f} tok/s; " + "; ".join(lines)
+              + f"; max_memory_allocated={torch.cuda.max_memory_allocated()}"
+              f" bytes; {time.perf_counter() - t_arch:.1f} s", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -3365,11 +3855,21 @@ def main() -> None:
 
     kernels = spmd_phase(card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     kernels["flash_attention"] = lm_phase(card)
     torch.cuda.empty_cache()
+    print(f"phase seconds: lm {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    moe = moe_phase(card)
+    print(f"phase seconds: moe {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    archs = arch_sweep_phase(card)
+    print(f"phase seconds: archs {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
     kernels["flash_attention"]["paths"] = {
         "lm": kernels["flash_attention"]["launches"],
-        "train": train_phase(card)}
+        "moe": moe, "archs": archs, "train": train_phase(card)}
+    print(f"phase seconds: train {time.perf_counter() - t0:.1f}", flush=True)
 
     rows = []
     for name, (source, replaces, path) in KERNELS.items():

@@ -1,14 +1,27 @@
-"""Config registry: ``--arch <id>`` resolution for the launchers.  Only
-qwen3-1.7b is ported; the JAX package's other architectures wait for
-their families (ROADMAP queue 1 item 5)."""
+"""Config registry: ``--arch <id>`` resolution for the launchers.  The
+dense and MoE transformer archs are ported; rwkv6-1.6b and
+jamba-1.5-large-398b wait for their families (ROADMAP queue 1, "The
+other families")."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from .base import ArchSpec, ShapeSpec, lm_shapes
+from .base import ArchSpec, ShapeSpec, input_specs, lm_shapes
+from .mixtral_8x7b import SPEC as _mixtral
+from .qwen2_moe_a2_7b import SPEC as _qwen2moe
 from .qwen3_1_7b import SPEC as _qwen3
+from .llama3_405b import SPEC as _llama3
+from .nemotron_4_15b import SPEC as _nemotron
+from .qwen2_5_3b import SPEC as _qwen25
+from .musicgen_medium import SPEC as _musicgen
+from .pixtral_12b import SPEC as _pixtral
 
-ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [_qwen3]}
+ARCHS: Dict[str, ArchSpec] = {
+    s.arch_id: s for s in [
+        _mixtral, _qwen2moe, _qwen3, _llama3, _nemotron, _qwen25,
+        _musicgen, _pixtral,
+    ]
+}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -17,4 +30,16 @@ def get_arch(arch_id: str) -> ArchSpec:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ArchSpec", "ShapeSpec", "get_arch", "lm_shapes"]
+def all_cells(include_skipped: bool = False) -> List[tuple]:
+    """Every (arch_id, shape_name) cell of the registered archs."""
+    out = []
+    for aid, spec in ARCHS.items():
+        for sname, sh in spec.shapes.items():
+            if sh.skip and not include_skipped:
+                continue
+            out.append((aid, sname))
+    return out
+
+
+__all__ = ["ARCHS", "ArchSpec", "ShapeSpec", "get_arch", "all_cells",
+           "input_specs", "lm_shapes"]

@@ -1,11 +1,15 @@
 """Architecture and shape records, as in the JAX package's
-``configs/base.py`` (without the dry-run's ``input_specs``)."""
+``configs/base.py``; ``input_specs`` gives every model input of a cell
+as a meta tensor (shape and dtype, no storage)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict
 
+import torch
+
 from ..models import ModelConfig
+from ..models.layers import make_kv_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +53,39 @@ class ArchSpec:
     def optimized_config(self) -> ModelConfig:
         return dataclasses.replace(self.config, **self.optimized) \
             if self.optimized else self.config
+
+
+# ----------------------------------------------------------------------
+
+def input_specs(spec: ArchSpec, shape_name: str,
+                smoke: bool = False) -> Dict[str, Any]:
+    """Meta tensors (``device="meta"``: shape and dtype, nothing
+    allocated) for every model input of this cell, with the shapes and
+    dtypes of the reference's ``ShapeDtypeStruct`` stand-ins: ``inputs``
+    (and ``targets`` for train) for train and prefill; ``token``, the
+    decode ``cache`` (capped by a sliding window) and ``pos`` for
+    decode."""
+    cfg = spec.smoke if smoke else spec.config
+    sh = spec.shapes[shape_name]
+    B, S = sh.global_batch, sh.seq_len
+    if smoke:
+        B, S = 2, min(S, 64)
+    meta = torch.device("meta")
+    if sh.kind in ("train", "prefill"):
+        if cfg.embed_inputs:
+            ins = {"inputs": torch.empty((B, S, cfg.d_model),
+                                         dtype=cfg.dtype, device=meta)}
+        else:
+            ins = {"inputs": torch.empty((B, S), dtype=torch.int32,
+                                         device=meta)}
+        if sh.kind == "train":
+            ins["targets"] = torch.empty((B, S), dtype=torch.int32,
+                                         device=meta)
+        return ins
+    # decode: one new token against a cache of length seq_len
+    tok = (torch.empty((B, cfg.d_model), dtype=cfg.dtype, device=meta)
+           if cfg.embed_inputs
+           else torch.empty((B,), dtype=torch.int32, device=meta))
+    cache = make_kv_cache(cfg, B, S, meta, stacked_layers=cfg.num_layers)
+    return {"token": tok, "cache": cache,
+            "pos": torch.empty((), dtype=torch.int32, device=meta)}

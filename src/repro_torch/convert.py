@@ -191,7 +191,10 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     """Build the port's ``LM`` for ``cfg`` on ``device`` holding the
     weights of a JAX-layout tree (``repro.models.lm.lm_defs`` structure,
     numpy leaves, layer leaves stacked on a leading ``layers`` axis),
-    each cast to the dtype of its port ``ParamDef``."""
+    each cast to the dtype of its port ``ParamDef``.  The tree is the
+    config's: MoE layers (``layers.moe``: the float32 router, [L, E, D,
+    F] experts, ``shared``), QKV biases, no ``embed`` with
+    ``embed_inputs``."""
     model = LM(cfg, resolve_device(device))
     for path, d in iter_defs(lm_defs(cfg)):
         keys = path.split(".")

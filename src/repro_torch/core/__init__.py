@@ -31,7 +31,8 @@ from .selection import SelectionResult, select_patterns
 from .fragmentation import (Fragment, Fragmentation, build_fragmentation,
                             horizontal_fragmentation, vertical_fragmentation)
 from .allocation import (Allocation, ReplicationPlan, affinity_matrix,
-                         allocate, allocate_fragments, fap_property_heat,
+                         allocate, allocate_experts, allocate_fragments,
+                         fap_property_heat,
                          plan_replication, replicated_edge_ids,
                          workload_property_heat)
 from .dictionary import DataDictionary
@@ -60,6 +61,7 @@ __all__ = [
     "Fragment", "Fragmentation", "build_fragmentation",
     "vertical_fragmentation", "horizontal_fragmentation",
     "Allocation", "affinity_matrix", "allocate", "allocate_fragments",
+    "allocate_experts",
     "ReplicationPlan", "plan_replication",
     "fap_property_heat", "workload_property_heat", "replicated_edge_ids",
     "DataDictionary", "Decomposition", "decompose",

@@ -295,3 +295,46 @@ def property_site_map(graph, site_edge_ids: Sequence[np.ndarray]
             out.setdefault(int(prop), set()).add(j)
     return {prop: tuple(sorted(sites))
             for prop, sites in sorted(out.items())}
+
+
+# ----------------------------------------------------------------------
+# Bridge: expert placement for MoE architectures
+# ----------------------------------------------------------------------
+
+def allocate_experts(coactivation: np.ndarray, num_shards: int,
+                     balance_factor: float = 0.25) -> np.ndarray:
+    """Cluster experts by token co-activation (Def. 13 with tokens as
+    queries and experts as fragments) onto shards.  Balanced by default:
+    expert shards must hold equal parameter bytes.
+
+    Returns expert -> shard assignment with exactly E/num_shards experts
+    per shard (round-robin rebalance after Algorithm 2 clustering).
+    """
+    E = coactivation.shape[0]
+    A = coactivation.astype(np.float64).copy()
+    np.fill_diagonal(A, 0.0)
+    alloc = allocate(A, num_shards, sizes=np.ones(E),
+                     balance_factor=balance_factor)
+    # enforce exact balance: move overflow experts (lowest internal
+    # affinity first) to underfull shards
+    per = E // num_shards
+    groups = alloc.groups()
+    overflow: List[int] = []
+    for g in groups:
+        while len(g) > per:
+            # evict the member with least affinity to the rest of g
+            aff_in = [(float(A[e, g].sum()), e) for e in g]
+            aff_in.sort()
+            e = aff_in[0][1]
+            g.remove(e)
+            overflow.append(e)
+    out = np.zeros(E, dtype=np.int64)
+    for sid, g in enumerate(groups):
+        for e in g:
+            out[e] = sid
+    for sid, g in enumerate(groups):
+        while len(g) < per and overflow:
+            e = overflow.pop()
+            g.append(e)
+            out[e] = sid
+    return out

@@ -20,7 +20,7 @@ import torch
 
 from ..configs import get_arch
 from ..device import resolve_device
-from ..models import LM, get_api
+from ..models import LM, ModelConfig, get_api
 from .steps import make_serve_step
 
 
@@ -32,12 +32,17 @@ class ServeResult:
     tokens_per_sec: float
 
 
-def make_prompts(vocab_size: int, batch: int, prompt_len: int,
+def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int,
                  seed: int) -> np.ndarray:
-    """The prompts ``serve`` feeds: uniform token ids from
-    ``numpy.random.default_rng(seed)``, as the reference draws them."""
+    """The prompts ``serve`` feeds, from ``numpy.random.default_rng(seed)``
+    as the reference draws them: uniform token ids [batch, prompt_len]
+    int32, or for an ``embed_inputs`` arch (a stub frontend) standard
+    normal embeddings [batch, prompt_len, d_model] float32."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, vocab_size,
+    if cfg.embed_inputs:
+        return rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size,
                         size=(batch, prompt_len)).astype(np.int32)
 
 
@@ -52,22 +57,25 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 16,
           model: Optional[LM] = None) -> ServeResult:
     """Feed ``batch`` seeded prompts token by token through the serve
     step (the cache warm-up the reference calls prefill), then decode
-    ``gen_len`` tokens greedily.  ``model`` serves given weights (it must
-    lie on ``device``); without it the arch's smoke or full config is
-    built from ``seed``."""
+    ``gen_len`` tokens greedily.  An ``embed_inputs`` arch decodes from
+    zero embeddings, as the reference's stub frontend does.  ``model``
+    serves given weights (it must lie on ``device``); without it the
+    arch's smoke or full config is built from ``seed``."""
     dev = resolve_device(device)
     spec = get_arch(arch)
     if model is None:
         cfg = spec.smoke if smoke else spec.config
         model = get_api(cfg).build(cfg, dev, seed)
-    elif model.embed.device.type != dev.type:
-        raise ValueError(f"serve: the model lies on {model.embed.device}, "
-                         f"not on {dev}")
+    else:
+        where = next(model.parameters()).device
+        if where.type != dev.type:
+            raise ValueError(f"serve: the model lies on {where}, not on "
+                             f"{dev}")
     cfg = model.cfg
     api = get_api(cfg)
     max_len = prompt_len + gen_len
     prompts = torch.from_numpy(
-        make_prompts(cfg.vocab_size, batch, prompt_len, seed)).to(dev)
+        make_prompts(cfg, batch, prompt_len, seed)).to(dev)
     step_fn = make_serve_step(cfg)
 
     # --- prefill: feed the prompt through decode steps (cache warmup) ---
@@ -84,7 +92,12 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 16,
     out: List[torch.Tensor] = []
     t0 = time.perf_counter()
     for t in range(prompt_len, max_len):
-        tok, cache = step_fn(model, tok, cache, t)
+        if cfg.embed_inputs:
+            cur = torch.zeros((batch, cfg.d_model), dtype=cfg.dtype,
+                              device=dev)
+        else:
+            cur = tok
+        tok, cache = step_fn(model, cur, cache, t)
         out.append(tok)
     tokens = torch.stack(out, dim=1).cpu().numpy()
     t_decode = time.perf_counter() - t0

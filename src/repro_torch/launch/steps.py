@@ -65,7 +65,8 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
 
 
 def make_forward_step(cfg: ModelConfig) -> Callable:
-    """forward(params, inputs [B, S]) -> logits [B, S, V]."""
+    """forward(params, inputs) -> logits [B, S, V]; inputs are token
+    ids [B, S], or embeddings [B, S, D] for an ``embed_inputs`` arch."""
     api = get_api(cfg)
 
     def forward(params, inputs: torch.Tensor) -> torch.Tensor:
@@ -76,8 +77,9 @@ def make_forward_step(cfg: ModelConfig) -> Callable:
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """serve_step(params, token [B], cache, pos) -> (next_token [B]
-    int32, cache): one greedy decode step."""
+    """serve_step(params, token, cache, pos) -> (next_token [B] int32,
+    cache): one greedy decode step; ``token`` is [B] ids, or [B, D]
+    embeddings for an ``embed_inputs`` arch."""
     api = get_api(cfg)
 
     def serve_step(params, token: torch.Tensor, cache: Dict[str, torch.Tensor],

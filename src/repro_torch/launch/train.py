@@ -71,6 +71,9 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
     dev = resolve_device(device)
     spec = get_arch(arch)
     cfg = config_override or (spec.smoke if smoke else spec.config)
+    if cfg.embed_inputs:
+        raise ValueError(f"{arch} is a frontend-stub arch; train the token "
+                         f"archs")
     api = get_api(cfg)
 
     opt_cfg = AdamWConfig(lr=lr)

@@ -1,4 +1,4 @@
-"""LM model stack (dense family) as PyTorch modules."""
+"""LM model stack (dense and MoE families) as PyTorch modules."""
 from .common import ModelConfig, ParamDef, init_params, param_count
 from .lm import LM, build_lm
 from .registry import ModelApi, get_api

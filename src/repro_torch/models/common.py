@@ -27,12 +27,24 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 @dataclasses.dataclass
 class ModelConfig:
-    """Field names follow the JAX package's ``ModelConfig``, restricted
-    to the dense transformer family that is ported.  The options of the
-    families still to port (MoE, the sliding-window cache, ``qkv_bias``,
-    ``sq_relu``, ``embed_inputs``) have no field: a config that sets one
-    is refused when it is made.  ``remat`` (none | full | dots) is
-    read by the training forward only."""
+    """Field names and defaults follow the JAX package's ``ModelConfig``
+    for the dense and MoE transformer families.  Fields that nothing in
+    the port reads have no counterpart, so a config that sets one is
+    refused (``TypeError``) when it is made:
+
+    - ``expert_affinity_placement``: nothing in the reference reads it
+      either; placement is ``moe_apply``'s ``expert_perm`` argument
+      (``models/placement.py``);
+    - ``fsdp`` and ``seq_shard_decode``: they feed the reference's
+      sharding rules engine, which has no counterpart on one device;
+    - the rwkv and jamba fields (``ssm_d_state``, ``ssm_conv``,
+      ``ssm_expand``, ``ssm_scan_unroll``, ``rwkv_head_dim``,
+      ``chunk_size``, ``attn_every``, ``moe_every``): those families
+      are not ported yet (ROADMAP queue 1, "The other families").
+
+    ``remat`` (none | full | dots) is read by the training forward
+    only.  ``moe_sharded_ffn`` and ``moe_shard_map`` select the batched
+    dispatch, which is what the reference runs on one device."""
     name: str = "model"
     family: str = "dense"          # dense | moe | rwkv | hybrid
     num_layers: int = 2
@@ -44,8 +56,22 @@ class ModelConfig:
     vocab_size: int = 256
     # attention options
     qk_norm: bool = False          # qwen3
+    qkv_bias: bool = False         # qwen2.5 / qwen2-moe
+    window: Optional[int] = None   # mixtral sliding window
     rope_theta: float = 1e4
+    # mlp options
+    mlp_act: str = "silu_glu"      # silu_glu | sq_relu
+    # MoE options
+    num_experts: int = 0
+    top_k: int = 2
+    num_shared_experts: int = 0
+    moe_d_ff: Optional[int] = None  # per-expert ff (qwen2-moe: 1408)
+    capacity_factor: float = 1.25
+    moe_grouped_dispatch: bool = False   # per-sequence routing
+    moe_sharded_ffn: bool = False        # batched dispatch
+    moe_shard_map: bool = False          # batched dispatch on one device
     # io
+    embed_inputs: bool = False     # modality-frontend stub ([B,S,D] in)
     tie_embeddings: bool = False
     logit_softcap: Optional[float] = None
     # numerics
@@ -61,6 +87,9 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def effective_moe_ff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
 
 
 # ======================================================================

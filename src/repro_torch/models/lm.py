@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM of the dense family (qwen3, qwen2.5,
-llama3 shapes without their unported options).
+"""Decoder-only transformer LM of the dense and MoE families (qwen3,
+qwen2.5, llama3, nemotron, mixtral, qwen2-moe, and the musicgen and
+pixtral backbones, whose frontends are stubs: ``embed_inputs`` takes
+[B, S, D] embeddings in place of tokens).
 
 ``lm_defs`` gives the JAX package's parameter tree, with the stacked
 leading ``layers`` axis (it is what ``convert.lm_params_from_numpy``
@@ -24,8 +26,9 @@ from torch import nn
 from ..device import resolve_device
 from .common import (ModelConfig, ParamDef, init_params, maybe_remat,
                      register_params, rms_norm, softcap)
-from .layers import (MLP, Attention, attn_apply, attn_decode, attn_defs,
-                     make_kv_cache, mlp_apply, mlp_defs)
+from .layers import (MLP, Attention, MoE, attn_apply, attn_decode,
+                     attn_defs, make_kv_cache, mlp_apply, mlp_defs,
+                     moe_apply, moe_defs)
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -43,8 +46,9 @@ def _norm_def(cfg: ModelConfig) -> ParamDef:
 
 def _top_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, V = cfg.d_model, cfg.vocab_size
-    out = {"final_norm": _norm_def(cfg),
-           "embed": ParamDef((V, D), ("vocab", "embed"), dtype=cfg.dtype)}
+    out = {"final_norm": _norm_def(cfg)}
+    if not cfg.embed_inputs:
+        out["embed"] = ParamDef((V, D), ("vocab", "embed"), dtype=cfg.dtype)
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((D, V), ("embed", "vocab"), dtype=cfg.dtype)
     return out
@@ -53,7 +57,11 @@ def _top_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def lm_defs(cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX package's parameter tree (stacked layers)."""
     layer = {"ln1": _norm_def(cfg), "ln2": _norm_def(cfg),
-             "attn": attn_defs(cfg), "mlp": mlp_defs(cfg)}
+             "attn": attn_defs(cfg)}
+    if cfg.num_experts > 0:
+        layer["moe"] = moe_defs(cfg)
+    else:
+        layer["mlp"] = mlp_defs(cfg)
     return {"layers": stack_defs(layer, cfg.num_layers), **_top_defs(cfg)}
 
 
@@ -63,7 +71,10 @@ class Block(nn.Module):
         register_params(self, {"ln1": _norm_def(cfg), "ln2": _norm_def(cfg)},
                         device)
         self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.num_experts > 0:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class LM(nn.Module):
@@ -72,10 +83,11 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet (ROADMAP "
-                f"queue 1 item 5); only 'dense' is")
+                f"queue 1, \"The other families\"); only 'dense' and "
+                f"'moe' are")
         self.cfg = cfg
         register_params(self, _top_defs(cfg), device)
         self.blocks = nn.ModuleList(Block(cfg, device)
@@ -96,11 +108,32 @@ def build_lm(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
 # Forward (prefill)
 # ----------------------------------------------------------------------
 
+def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's MoE or MLP on the normed x: (output, aux loss; 0
+    for an MLP)."""
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    if cfg.num_experts > 0:
+        return moe_apply(cfg, p.moe, h)
+    return mlp_apply(cfg, p.mlp, h), torch.zeros((), device=x.device)
+
+
 def _block(cfg: ModelConfig, p: Block, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x = x + attn_apply(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
                        positions)
-    return x + mlp_apply(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    h, aux = _ffn(cfg, p, x)
+    return x + h, aux
+
+
+def _embed(cfg: ModelConfig, params: LM, inputs: torch.Tensor
+           ) -> torch.Tensor:
+    """Token ids [B, S] through the embedding table, or, with
+    ``embed_inputs``, the [B, S, D] embeddings cast to the model's
+    dtype."""
+    if cfg.embed_inputs:
+        return inputs.to(cfg.dtype)
+    return F.embedding(inputs.long(), params.embed)
 
 
 def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -113,15 +146,18 @@ def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
 def lm_apply(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
              positions: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """inputs: int tokens [B, S].  Returns (logits [B, S, V], aux_loss);
-    the dense family has no auxiliary loss, so it is 0."""
-    x = params.embed[inputs.long()]
+    """inputs: int tokens [B, S] or embeddings [B, S, D]
+    (``embed_inputs``).  Returns (logits [B, S, V], aux_loss): the mean
+    of the layers' MoE load-balancing losses, 0 for the dense family."""
+    x = _embed(cfg, params, inputs)
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    auxs = []
     for blk in params.blocks:
-        x = _block(cfg, blk, x, positions)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+        x, aux = _block(cfg, blk, x, positions)
+        auxs.append(aux)
+    return _logits(cfg, params, x), torch.stack(auxs).mean()
 
 
 def lm_forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
@@ -130,14 +166,16 @@ def lm_forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     """``lm_apply`` keeping the autograd graph (training): each block
     runs under ``maybe_remat(cfg.remat)``.  Returns (logits [B, S, V],
     aux_loss)."""
-    x = F.embedding(inputs.long(), params.embed)
+    x = _embed(cfg, params, inputs)
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    auxs = []
     for blk in params.blocks:
-        x = maybe_remat(functools.partial(_block, cfg, blk),
-                        cfg.remat)(x, positions)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+        x, aux = maybe_remat(functools.partial(_block, cfg, blk),
+                             cfg.remat)(x, positions)
+        auxs.append(aux)
+    return _logits(cfg, params, x), torch.stack(auxs).mean()
 
 
 def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
@@ -158,7 +196,9 @@ def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: Union[str, torch.device] = "cuda"
                   ) -> Dict[str, torch.Tensor]:
-    """Zeroed KV cache {k, v: [layers, B, max_len, Hkv, Dh]}."""
+    """Zeroed KV cache {k, v: [layers, B, cap, Hkv, Dh]}: ``cap`` is
+    ``max_len``, or ``min(max_len, window)`` with a sliding window (a
+    rolling buffer)."""
     return make_kv_cache(cfg, batch, max_len, resolve_device(device),
                          stacked_layers=cfg.num_layers)
 
@@ -167,14 +207,15 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def lm_decode(cfg: ModelConfig, params: LM, token: torch.Tensor,
               cache: Dict[str, torch.Tensor], pos: int
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """token: [B] int; pos: the timeline index of this token.  Returns
-    (logits [B, V], cache), the cache updated in place."""
-    x = params.embed[token.long()][:, None]
+    """token: [B] int (or [B, D] embeddings with ``embed_inputs``); pos:
+    the timeline index of this token.  Returns (logits [B, V], cache),
+    the cache updated in place."""
+    x = _embed(cfg, params, token[:, None])
     for i, blk in enumerate(params.blocks):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         h, _ = attn_decode(cfg, blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps),
                            layer_cache, pos)
         x = x + h
-        x = x + mlp_apply(cfg, blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps))
+        x = x + _ffn(cfg, blk, x)[0]
     return _logits(cfg, params, x[:, 0]), cache
 

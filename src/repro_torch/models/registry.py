@@ -1,6 +1,6 @@
-"""Model API by family, as in the JAX package's registry.  Only the
-dense transformer is ported; every other family raises, naming the
-ROADMAP item that covers it.
+"""Model API by family, as in the JAX package's registry.  The dense
+and MoE transformers share one API; rwkv and hybrid (jamba) are not
+ported yet and raise, naming the ROADMAP entry that covers them.
 
   defs(cfg)                          -> ParamDef tree (stacked layers)
   build(cfg, device, seed)           -> the parameter module
@@ -28,14 +28,14 @@ class ModelApi:
     decode: Callable
 
 
-_REGISTRY: Dict[str, ModelApi] = {
-    "dense": ModelApi(_lm.lm_defs, _lm.build_lm, _lm.lm_apply,
-                      _lm.lm_loss, _lm.lm_init_cache, _lm.lm_decode),
-}
+_TRANSFORMER = ModelApi(_lm.lm_defs, _lm.build_lm, _lm.lm_apply,
+                        _lm.lm_loss, _lm.lm_init_cache, _lm.lm_decode)
+
+_REGISTRY: Dict[str, ModelApi] = {"dense": _TRANSFORMER, "moe": _TRANSFORMER}
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue 1 item 5); have {sorted(_REGISTRY)}")
+            f"queue 1, \"The other families\"); have {sorted(_REGISTRY)}")
     return _REGISTRY[cfg.family]
