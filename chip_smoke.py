@@ -153,7 +153,26 @@ Phases, each fatal on any error or mismatch:
    4096) at full width with 2 layers: the same forward checks with 2
    launches each, a short ``serve()``, forward against decode steps;
    mixtral's rolling cache through 4096 + 64 decode steps, each step
-   past the wrap against the windowed forward.
+   past the wrap against the windowed forward.  Then the other two
+   families: rwkv6-1.6b at its published width and depth (24 layers,
+   1,583,941,632 parameters, bf16): the forward at 2 x 4096, ``serve()``
+   of 4 x (128 + 32), the decode state's bytes at ``max_len`` 160 and
+   524,288 (equal), every layer's time mix chunked against token by
+   token over a 1 x 600 prompt (three 256-token chunks, the last
+   padded: the WKV state and the outputs held; the end-to-end forward
+   against the decode steps, which this random-weight model parts in
+   the reference too, printed), float32 at 2 layers on the card against
+   the CPU (1 x 300, the forward and the decode steps); no kernel may
+   launch.  jamba-1.5-large-398b at published width cut to
+   one 8-layer super-block with an MoE FFN every 4th layer (2 MoE + 5
+   dense mamba sublayers, 27,118,690,304 parameters): the forward at 1 x
+   4096 with exactly one flash launch, held against the plain version on
+   its q, k, v, with every MoE sublayer's largest expert load and dropped
+   assignments; against plain attention with the routing replayed;
+   ``serve()`` of 4 x (16 + 8); the forward against the decode steps at
+   every prompt position at factor E / K with the routing replayed; one
+   mamba layer at full width in float32 on the card against the CPU (1 x
+   256: the output and the final scan and conv states).
 9. train: ``ops.attention`` refuses a q that requires grad (no launch);
    one float32 train step at qwen3-1.7b's width with 2 layers on the
    card and on the CPU from the same weights and batches (loss and
@@ -170,7 +189,7 @@ Phases, each fatal on any error or mismatch:
    the ninth step: ``flash_attention``'s ``paths.train`` is that count.
 10. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path (flash on
-   ``lm``, ``moe``, ``archs`` and ``train``), the join
+   ``lm``, ``moe``, ``archs``, ``jamba`` and ``train``), the join
    kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
    ``adaptive``, ``horizontal``, ``shape`` and ``warp``), the card
    line, and last the result.
@@ -2908,9 +2927,11 @@ def device_profile(fn: Callable[[], object], what: str,
                              ProfilerActivity.CUDA]) as prof:
         wall = host_s(fn)
     by_name: Dict[str, List[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    # the raw kineto events: parsing them into ``prof.events()`` takes
+    # about 20 s for the 280,000 events of a forward of small operations
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
     busy_us = sum(sum(v) for v in by_name.values())
     if busy_us <= 0:
         print(f"profile {what}: device busy share not measured (the "
@@ -3122,27 +3143,26 @@ ROLL_EXTRA = 64
 
 @contextlib.contextmanager
 def routing_log():
-    """Wrap the LM's ``moe_apply``: each call (one MoE layer) appends its
-    expert ids ``idx`` [R, T, K], its largest expert load, capacity and
-    dropped assignments, from ``moe_routing`` (what ``moe_apply`` routes
-    with); the output is not touched."""
-    from repro_torch.models import lm as tlm
-    from repro_torch.models.layers import moe_routing
+    """Wrap the LM's and jamba's ``moe_apply``: each call (one MoE layer)
+    appends its expert ids ``idx`` [R, T, K], its largest expert load,
+    capacity and dropped assignments, from ``moe_routing`` (what
+    ``moe_apply`` routes with); the output is not touched."""
+    from repro_torch.models import jamba, lm
+    from repro_torch.models.layers import moe_apply, moe_routing
     records: List[dict] = []
-    inner = tlm.moe_apply
 
     def logged(cfg, p, h, *args, **kw):
         r = moe_routing(cfg, p, h, *args, **kw)
         records.append({"idx": r["idx"], "max_load": int(r["loads"].max()),
                         "capacity": r["capacity"],
                         "dropped": int((~r["keep"]).sum())})
-        return inner(cfg, p, h, *args, **kw)
+        return moe_apply(cfg, p, h, *args, **kw)
 
-    tlm.moe_apply = logged
+    lm.moe_apply = jamba.moe_apply = logged
     try:
         yield records
     finally:
-        tlm.moe_apply = inner
+        lm.moe_apply = jamba.moe_apply = moe_apply
 
 
 @contextlib.contextmanager
@@ -3532,6 +3552,342 @@ def arch_sweep_phase(card: str, dev: str = "cuda") -> int:
 
 
 # ----------------------------------------------------------------------
+# The rwkv and hybrid families
+# ----------------------------------------------------------------------
+
+# rwkv6-1.6b at its published width and depth (24 layers, bf16, seeded
+# weights): the forward at LM_BATCH x LM_SEQ, serve() of SERVE_BATCH x
+# (SERVE_PROMPT + SERVE_GEN), and over a prompt of three 256-token
+# chunks, the last padded, the chunked recurrence against the decode
+# step layer by layer.  End to end, the forward and the decode steps of
+# this random-weight model part far past LOGIT_TOL, in the reference
+# too: the per-head group norm (eps 64e-5) multiplies the rounding of a
+# head whose wkv nearly vanishes by up to 40, and 24 layers compound it
+# (float32 0.31 over 600 positions on an H100; the reference's own bf16
+# forward and decode 0.96 apart at the second token; PERF.md).
+# So every layer's time mix runs chunked and token by token on the
+# forward's own input: the WKV state after the prompt is held to
+# float32's rounding and the outputs to four bf16 units in the last
+# place of the largest (the normed wkv is rounded to bf16); the end-to-
+# end gap over the first RWKV_SHOWN positions is printed
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_PROMPT, RWKV_SHOWN = 600, 64
+RWKV_STATE_RTOL, RWKV_MIX_RTOL = 1e-5, 2.0 ** -6
+RWKV_LONG = 524_288              # long_500k's context
+# card against CPU: float32 at full width with 2 layers, 1 x 300 tokens
+# (two chunks, the second padded), the forward and the decode steps
+# within 1e-4 of the largest logit
+FAMILY_CHECK_LAYERS, RWKV_CHECK_SEQ, FAMILY_CHECK_RTOL = 2, 300, 1e-4
+# jamba-1.5-large-398b at published width, one super-block of 8 layers
+# with an MoE FFN every 4th layer (2 MoE + 5 dense mamba sublayers,
+# 27,118,690,304 parameters, 54.2 GB of bf16; moe_every 2 would be 90.5
+# GB): the forward at 1 x 4096 with its one attention layer through the
+# kernel, serve() of 4 x (16 + 8), one mamba layer at full width in
+# float32 on the card and the CPU over 1 x 256 tokens
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS, JAMBA_MOE_EVERY = 8, 4
+JAMBA_SEQ, JAMBA_PROFILE_SEQ = 4096, 1024
+JAMBA_PROMPT, JAMBA_GEN = 16, 8
+JAMBA_CHECK_SEQ = 256
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|: the card against the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _cache_bytes(cache) -> int:
+    if isinstance(cache, dict):
+        return sum(_cache_bytes(v) for v in cache.values())
+    return cache.numel() * cache.element_size()
+
+
+def rwkv_stepwise_check(cfg, model, prompt: torch.Tensor) -> str:
+    """Every layer of the forward over ``prompt`` [1, T]: its time mix
+    chunked (``wkv_chunked``) and token by token from the carried decode
+    state (``wkv_step``) on the same input; the WKV state after the
+    prompt within ``RWKV_STATE_RTOL`` of its largest entry and the
+    outputs within ``RWKV_MIX_RTOL`` of the largest.  The forward goes on
+    from the chunked outputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.rwkv import channel_mix, time_mix
+    eps = cfg.norm_eps
+    N = cfg.rwkv_head_dim
+    state_gap = mix_gap = 0.0
+    with torch.no_grad():
+        x = F.embedding(prompt.long(), model.embed)
+        for blk in model.blocks:
+            xn = rms_norm(x, blk.ln1, eps)
+            h, (S_end, _last) = time_mix(cfg, blk.tm, xn)
+            state = (x.new_zeros((1, cfg.d_model // N, N, N),
+                                 dtype=torch.float32),
+                     xn.new_zeros(xn[:, 0].shape))
+            outs = []
+            for t in range(prompt.shape[1]):
+                o, state = time_mix(cfg, blk.tm, xn[:, t:t + 1], state=state)
+                outs.append(o)
+            state_gap = max(state_gap, _rel_gap(state[0], S_end))
+            mix_gap = max(mix_gap, _rel_gap(torch.cat(outs, 1), h))
+            x = x + h.to(x.dtype)
+            x = x + channel_mix(cfg, blk.cm, rms_norm(x, blk.ln2, eps)
+                                )[0].to(x.dtype)
+    what = (f"chunked vs stepped time mix, every layer, 1 x "
+            f"{prompt.shape[1]} (chunk {cfg.chunk_size}, the last padded)")
+    if not (state_gap <= RWKV_STATE_RTOL and mix_gap <= RWKV_MIX_RTOL):
+        fail(f"rwkv {what}: WKV state {state_gap}, outputs {mix_gap} "
+             f"(limits {RWKV_STATE_RTOL}, {RWKV_MIX_RTOL})")
+    return (f"{what}: WKV state max abs difference / max abs entry "
+            f"{state_gap:.3e} (limit {RWKV_STATE_RTOL}), outputs "
+            f"{mix_gap:.3e} (limit {RWKV_MIX_RTOL:.3e})")
+
+
+def rwkv_phase(card: str, dev: str = "cuda") -> None:
+    """rwkv6-1.6b at published width and depth: the forward, serve(),
+    the decode state's bytes at two context lengths, the chunked
+    recurrence against the decode step at every layer over a 600-token
+    prompt (the end-to-end forward against the decode steps printed over
+    its first 64 positions),
+    and the card against the CPU at 2 layers in float32, forward and
+    decode steps.  No kernel may launch: the reference runs WKV6 in plain
+    jnp."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import get_api, param_count
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(RWKV_ARCH).config
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    model = api.build(cfg, dev, 0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    forward = make_forward_step(cfg)
+    ops.reset_launches()
+    logits = forward(model, toks)
+    torch.cuda.synchronize()
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"rwkv forward logits: shape {tuple(logits.shape)} or "
+             f"non-finite")
+    del logits
+    t_fwd = host_s(lambda: forward(model, toks))
+    print(f"rwkv ({card}): {cfg.name}, {cfg.num_layers} layers, "
+          f"param_count={param_count(api.defs(cfg))}, {nbytes} bytes of "
+          f"weights, built on the card in {t_build:.1f} s; forward "
+          f"{LM_BATCH}x{LM_SEQ} tokens in {t_fwd:.3f} s "
+          f"({LM_BATCH * LM_SEQ / t_fwd:.1f} tok/s, warm, host clock)",
+          flush=True)
+    device_profile(lambda: forward(model, toks),
+                   f"rwkv forward {LM_BATCH}x{LM_SEQ}")
+
+    r = serve(RWKV_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              gen_len=SERVE_GEN, smoke=False, seed=0, device=dev, model=model)
+    if r.tokens.shape != (SERVE_BATCH, SERVE_GEN) or r.tokens.min() < 0 \
+            or r.tokens.max() >= cfg.vocab_size:
+        fail(f"rwkv serve tokens: shape {r.tokens.shape}")
+    sizes = {n: _cache_bytes(api.init_cache(cfg, 1, n, dev))
+             for n in (SERVE_PROMPT + SERVE_GEN, RWKV_LONG)}
+    if len(set(sizes.values())) != 1:
+        fail(f"rwkv decode state bytes differ by context: {sizes}")
+    print(f"rwkv serve ({card}): {SERVE_BATCH} requests, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}: prefill {r.prefill_sec:.3f} s "
+          f"({SERVE_BATCH * SERVE_PROMPT / r.prefill_sec:.1f} tok/s), decode "
+          f"{r.decode_sec:.3f} s ({r.tokens_per_sec:.1f} tok/s); decode "
+          f"state bytes by max_len {sizes}", flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (1, RWKV_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    line = rwkv_stepwise_check(cfg, model, prompt)
+    t_check = time.perf_counter() - t0
+    shown = prompt[:, :RWKV_SHOWN]
+    gaps = (forward(model, shown)[0].float()
+            - _decode_all(cfg, model, shown, dev)[:, 0].float()).abs().amax(-1)
+    del model
+    torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        fail(f"kernels launched on the rwkv path: {launches}")
+    print(f"rwkv {line} ({t_check:.1f} s); end to end, forward vs decode "
+          f"steps over the first {RWKV_SHOWN} positions, bf16: logits max "
+          f"abs difference {float(gaps.max()):.4f}, median over positions "
+          f"{float(gaps.median()):.4f}, {int((gaps > LOGIT_TOL).sum())} of "
+          f"{RWKV_SHOWN} positions past {LOGIT_TOL} (not held); launches "
+          f"{launches}; "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+
+    # the card against the CPU: float32, 2 layers, 1 x 300 tokens
+    c32 = dataclasses.replace(cfg, num_layers=FAMILY_CHECK_LAYERS,
+                              dtype=torch.float32)
+    cpu_model = api.build(c32, "cpu", 1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, RWKV_CHECK_SEQ)).astype(np.int32))
+    t0 = time.perf_counter()
+    want = api.apply(c32, cpu_model, x)[0]
+    t_cpu = time.perf_counter() - t0
+    rel = _rel_gap(api.apply(c32, card_model, x.to(dev))[0], want)
+    rel_steps = _rel_gap(_decode_all(c32, card_model, x.to(dev), dev)[:, 0],
+                         want[0])
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    print(f"rwkv card vs CPU ({card}): float32, {cfg.d_model} wide, "
+          f"{FAMILY_CHECK_LAYERS} layers, 1 x {RWKV_CHECK_SEQ} tokens: max "
+          f"abs difference / max abs logit, the card's forward {rel:.3e}, "
+          f"its decode steps {rel_steps:.3e}, against the CPU's forward "
+          f"(limit {FAMILY_CHECK_RTOL}; CPU {t_cpu:.1f} s); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not max(rel, rel_steps) <= FAMILY_CHECK_RTOL:
+        fail(f"rwkv card vs CPU: forward {rel}, decode steps {rel_steps}")
+
+
+def mamba_check(cfg, card: str, dev: str = "cuda") -> str:
+    """One mamba layer of ``cfg``'s width in float32 on the card and on
+    the CPU, from the same seeded weights, over 1 x ``JAMBA_CHECK_SEQ``
+    tokens: the output and the final (scan, conv) state within
+    ``FAMILY_CHECK_RTOL`` of the largest entry."""
+    import copy
+
+    from repro_torch.models.common import init_params
+    from repro_torch.models.ssm import Mamba, mamba_apply
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_mod = init_params(Mamba(c32, torch.device("cpu")),
+                          torch.Generator().manual_seed(4))
+    card_mod = copy.deepcopy(cpu_mod).to(dev)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (1, JAMBA_CHECK_SEQ, cfg.d_model)).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = mamba_apply(c32, cpu_mod, x)
+        t_cpu = time.perf_counter() - t0
+        got = mamba_apply(c32, card_mod, x.to(dev))
+    gaps = [_rel_gap(g, w) for g, w in ((got[0], want[0]),
+                                        (got[1][0], want[1][0]),
+                                        (got[1][1], want[1][1]))]
+    what = (f"one mamba layer, float32, d_in {cfg.ssm_expand * cfg.d_model}, "
+            f"1 x {JAMBA_CHECK_SEQ} tokens, card vs CPU")
+    if not max(gaps) <= FAMILY_CHECK_RTOL:
+        fail(f"{what}: relative gaps (y, h, conv) {gaps}")
+    del cpu_mod, card_mod
+    torch.cuda.empty_cache()
+    return (f"{what}: max abs difference / max abs entry y {gaps[0]:.3e}, h "
+            f"{gaps[1]:.3e}, conv {gaps[2]:.3e} (limit {FAMILY_CHECK_RTOL}; "
+            f"CPU {t_cpu:.1f} s)")
+
+
+def jamba_phase(card: str, dev: str = "cuda") -> int:
+    """jamba-1.5-large-398b at published width, one super-block: the
+    forward through the kernel (one launch, held against the plain
+    version on its q, k, v), against plain attention with the routing
+    replayed, ``serve()``, the forward against the decode steps at every
+    prompt position at an ample capacity with the routing replayed, and
+    one mamba layer card against CPU.  Returns the forward's flash
+    launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.steps import make_forward_step
+    from repro_torch.models import get_api, param_count
+    from repro_torch.models.layers import moe_capacity
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full_cfg = get_arch(JAMBA_ARCH).config
+    cfg = dataclasses.replace(full_cfg, num_layers=JAMBA_LAYERS,
+                              moe_every=JAMBA_MOE_EVERY, use_flash_kernel=True)
+    cut = (f"{JAMBA_LAYERS} of {full_cfg.num_layers} layers (one "
+           f"super-block), moe_every {JAMBA_MOE_EVERY} (not "
+           f"{full_cfg.moe_every}): {cfg.attn_every // cfg.moe_every} MoE + "
+           f"{cfg.attn_every - 1 - cfg.attn_every // cfg.moe_every} dense "
+           f"mamba sublayers")
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    model = api.build(cfg, dev, 0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"jamba ({card}): {cfg.name}, cut: {cut}; "
+          f"param_count={param_count(api.defs(cfg))}, {nbytes} bytes of "
+          f"weights, built on the card in {t_build:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (1, JAMBA_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    forward = make_forward_step(cfg)
+    ops.reset_launches()
+    with checked_attention("jamba forward") as gaps, routing_log() as fr:
+        logits = forward(model, toks)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention"] != 1:
+        fail(f"flash_attention launched {launches['flash_attention']} times "
+             f"in the jamba forward (one attention layer)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("jamba forward: non-finite logits")
+    print(f"launches on the jamba forward: {launches}; {_gaps_line(gaps)}; "
+          f"C = {moe_capacity(cfg, JAMBA_SEQ)} (mean load "
+          f"{JAMBA_SEQ * cfg.top_k / cfg.num_experts:.1f}), largest expert "
+          f"load / C : dropped assignments (of {JAMBA_SEQ * cfg.top_k}) per "
+          f"MoE sublayer: {_layer_loads(fr)}", flush=True)
+    with replayed_routing([r["idx"] for r in fr]) as st:
+        plain = make_forward_step(dataclasses.replace(
+            cfg, use_flash_kernel=False))(model, toks)
+    what = "jamba kernel vs plain attention"
+    diff = hold_logits(logits[0], plain[0], what)
+    print(f"{what} ({replay_line(st, what)}): logits max abs difference "
+          f"{diff:.4f}", flush=True)
+    del logits, plain, fr
+    t_fwd = host_s(lambda: forward(model, toks))
+    short = toks[:, :JAMBA_PROFILE_SEQ]
+    print(f"jamba forward ({card}): 1x{JAMBA_SEQ} tokens in {t_fwd:.3f} s "
+          f"({JAMBA_SEQ / t_fwd:.1f} tok/s, warm, host clock)", flush=True)
+    device_profile(lambda: forward(model, short),
+                   f"jamba forward 1x{JAMBA_PROFILE_SEQ}")
+
+    r = serve(JAMBA_ARCH, batch=SERVE_BATCH, prompt_len=JAMBA_PROMPT,
+              gen_len=JAMBA_GEN, smoke=False, seed=0, device=dev, model=model)
+    if r.tokens.shape != (SERVE_BATCH, JAMBA_GEN) or r.tokens.min() < 0 \
+            or r.tokens.max() >= cfg.vocab_size:
+        fail(f"jamba serve tokens: shape {r.tokens.shape}")
+    wide = ample(cfg)
+    prompts = torch.from_numpy(make_prompts(
+        cfg, SERVE_BATCH, JAMBA_PROMPT, 0)).to(dev)
+    with routing_log() as fr:
+        full = make_forward_step(wide)(model, prompts).transpose(0, 1)
+    with replayed_routing(_step_choices(fr, SERVE_BATCH, JAMBA_PROMPT)) as st:
+        steps = _decode_all(wide, model, prompts, dev)
+    k = SERVE_BATCH * JAMBA_PROMPT
+    what = (f"jamba forward vs decode steps at capacity factor "
+            f"{wide.capacity_factor}")
+    diff = hold_logits(full.reshape(k, -1), steps.reshape(k, -1), what)
+    del full, steps, model
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    print(f"jamba serve ({card}): {SERVE_BATCH} requests, prompt "
+          f"{JAMBA_PROMPT}, gen {JAMBA_GEN}: prefill {r.prefill_sec:.3f} s "
+          f"({SERVE_BATCH * JAMBA_PROMPT / r.prefill_sec:.1f} tok/s), decode "
+          f"{r.decode_sec:.3f} s ({r.tokens_per_sec:.1f} tok/s); {what}, all "
+          f"{k} prompt positions ({replay_line(st, what)}): logits max abs "
+          f"difference {diff:.4f}; max_memory_allocated={peak} bytes",
+          flush=True)
+    print(f"jamba mamba check ({card}): {mamba_check(cfg, card, dev)}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches["flash_attention"]
+
+
+# ----------------------------------------------------------------------
 # Train phase
 # ----------------------------------------------------------------------
 
@@ -3866,9 +4222,15 @@ def main() -> None:
     archs = arch_sweep_phase(card)
     print(f"phase seconds: archs {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
+    rwkv_phase(card)
+    jamba = jamba_phase(card)
+    print(f"phase seconds: families {time.perf_counter() - t0:.1f}",
+          flush=True)
+    t0 = time.perf_counter()
     kernels["flash_attention"]["paths"] = {
         "lm": kernels["flash_attention"]["launches"],
-        "moe": moe, "archs": archs, "train": train_phase(card)}
+        "moe": moe, "archs": archs, "jamba": jamba,
+        "train": train_phase(card)}
     print(f"phase seconds: train {time.perf_counter() - t0:.1f}", flush=True)
 
     rows = []

@@ -1,7 +1,5 @@
-"""Config registry: ``--arch <id>`` resolution for the launchers.  The
-dense and MoE transformer archs are ported; rwkv6-1.6b and
-jamba-1.5-large-398b wait for their families (ROADMAP queue 1, "The
-other families")."""
+"""Config registry: ``--arch <id>`` resolution for the launchers, the
+JAX package's ten archs."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -15,11 +13,13 @@ from .nemotron_4_15b import SPEC as _nemotron
 from .qwen2_5_3b import SPEC as _qwen25
 from .musicgen_medium import SPEC as _musicgen
 from .pixtral_12b import SPEC as _pixtral
+from .rwkv6_1_6b import SPEC as _rwkv6
+from .jamba_1_5_large import SPEC as _jamba
 
 ARCHS: Dict[str, ArchSpec] = {
     s.arch_id: s for s in [
         _mixtral, _qwen2moe, _qwen3, _llama3, _nemotron, _qwen25,
-        _musicgen, _pixtral,
+        _musicgen, _pixtral, _rwkv6, _jamba,
     ]
 }
 

@@ -8,8 +8,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..models import ModelConfig
-from ..models.layers import make_kv_cache
+from ..models import ModelConfig, get_api
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +85,6 @@ def input_specs(spec: ArchSpec, shape_name: str,
     tok = (torch.empty((B, cfg.d_model), dtype=cfg.dtype, device=meta)
            if cfg.embed_inputs
            else torch.empty((B,), dtype=torch.int32, device=meta))
-    cache = make_kv_cache(cfg, B, S, meta, stacked_layers=cfg.num_layers)
+    cache = get_api(cfg).init_cache(cfg, B, S, meta)
     return {"token": tok, "cache": cache,
             "pos": torch.empty((), dtype=torch.int32, device=meta)}

@@ -12,8 +12,8 @@ allocation, baseline per-site storage, selected patterns, config) and
 ``plan_from_state_arrays`` rebuilds this package's ``PartitionPlan``
 from it, data dictionary included, so one plan is served by every
 backend of either package.  ``lm_params_from_numpy`` loads a JAX-layout
-parameter tree (numpy arrays, stacked ``layers`` axis) into this
-package's ``LM`` and ``lm_params_to_numpy`` is its inverse;
+parameter tree of any model family (numpy arrays, layers stacked) into
+this package's model and ``lm_params_to_numpy`` is its inverse;
 ``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` do the same for
 the optimizer state, so a ``{params, opt}`` checkpoint has the same
 leaf names in both packages.
@@ -21,10 +21,11 @@ leaf names in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core.allocation import Allocation
 from .core.baselines import BaselineFragmentation
@@ -36,9 +37,8 @@ from .core.plan import PartitionConfig, PartitionPlan
 from .core.query import QueryGraph
 from .core.spmd import SpmdEngine
 from .device import resolve_device
-from .models import LM, ModelConfig
-from .models.common import iter_defs
-from .models.lm import lm_defs
+from .models import ModelConfig, get_api
+from .models.common import ParamDef, iter_defs
 
 PlanArrays = Dict[str, object]
 
@@ -185,39 +185,61 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+# The JAX trees stack layers on a leading axis: ``layers.*`` (the
+# transformer LM, rwkv) and ``blocks.*`` (jamba's super-blocks), each
+# index a module of the port's ``blocks`` list; jamba's
+# ``blocks.moe_layers.*`` and ``blocks.dense_layers.*`` stack the
+# sublayers of a block on a second axis ([nb, n_sub, ...]), each a
+# module of that block's list of the same name.
+_STACKED = ("layers", "blocks")
+_SUBLAYERS = ("moe_layers", "dense_layers")
+
+
+def _leaf_names(keys: List[str], d: ParamDef
+                ) -> List[Tuple[Tuple[int, ...], str]]:
+    """The port's parameter names holding the JAX leaf at ``keys``, each
+    with its index into the leaf's stacked axes (``()`` for an
+    unstacked leaf), in row-major order."""
+    if keys[0] not in _STACKED:
+        return [((), ".".join(keys))]
+    if len(keys) > 2 and keys[1] in _SUBLAYERS:
+        return [((i, j), ".".join(["blocks", str(i), keys[1], str(j)]
+                                  + keys[2:]))
+                for i in range(d.shape[0]) for j in range(d.shape[1])]
+    return [((i,), ".".join(["blocks", str(i)] + keys[1:]))
+            for i in range(d.shape[0])]
+
+
+def _tree_leaf(tree: Dict[str, Any], path: str, d: ParamDef) -> torch.Tensor:
+    leaf = tree
+    for k in path.split("."):
+        leaf = leaf[k]
+    src = _tensor(leaf)
+    if tuple(src.shape) != d.shape:
+        raise ValueError(f"{path}: shape {tuple(src.shape)}, expected "
+                         f"{d.shape}")
+    return src
+
+
 @torch.no_grad()
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                         device: Union[str, torch.device] = "cuda") -> LM:
-    """Build the port's ``LM`` for ``cfg`` on ``device`` holding the
-    weights of a JAX-layout tree (``repro.models.lm.lm_defs`` structure,
-    numpy leaves, layer leaves stacked on a leading ``layers`` axis),
-    each cast to the dtype of its port ``ParamDef``.  The tree is the
-    config's: MoE layers (``layers.moe``: the float32 router, [L, E, D,
-    F] experts, ``shared``), QKV biases, no ``embed`` with
-    ``embed_inputs``."""
-    model = LM(cfg, resolve_device(device))
-    for path, d in iter_defs(lm_defs(cfg)):
-        keys = path.split(".")
-        leaf = tree
-        for k in keys:
-            leaf = leaf[k]
-        src = _tensor(leaf)
-        if tuple(src.shape) != d.shape:
-            raise ValueError(f"{path}: shape {tuple(src.shape)}, expected "
-                             f"{d.shape}")
-        if keys[0] == "layers":
-            for i, blk in enumerate(model.blocks):
-                getattr(blk.get_submodule(".".join(keys[1:-1])),
-                        keys[-1]).copy_(src[i])
-        else:
-            getattr(model, keys[0]).copy_(src)
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> nn.Module:
+    """Build the port's model for ``cfg`` (``get_api(cfg).module``: the
+    ``LM``, ``RWKV`` or ``Jamba``) on ``device`` holding the weights of
+    a JAX-layout tree (the family's ``defs`` structure, numpy leaves,
+    stacked as ``_leaf_names`` reads them), each cast to the dtype of
+    its port ``ParamDef``.  The tree is the config's: MoE layers
+    (``layers.moe``: the float32 router, [L, E, D, F] experts,
+    ``shared``), QKV biases, no ``embed`` with ``embed_inputs``."""
+    api = get_api(cfg)
+    model = api.module(cfg, resolve_device(device))
+    named = dict(model.named_parameters())
+    for path, d in iter_defs(api.defs(cfg)):
+        src = _tree_leaf(tree, path, d)
+        for idx, name in _leaf_names(path.split("."), d):
+            named[name].copy_(src[idx])
     return model
-
-
-def _layer_name(keys: List[str], i: int) -> str:
-    """The module name of layer ``i``'s parameter at JAX path
-    ``layers/<keys[1:]>``."""
-    return ".".join(["blocks", str(i)] + keys[1:])
 
 
 def _host_leaf(t: torch.Tensor) -> Any:
@@ -227,17 +249,17 @@ def _host_leaf(t: torch.Tensor) -> Any:
 
 def _stack_named(named: Dict[str, torch.Tensor], cfg: ModelConfig
                  ) -> Dict[str, Any]:
-    """A dict keyed by the ``LM``'s parameter names (``blocks.<i>.``
-    per layer) as the JAX-layout tree, layer leaves stacked on the
-    host."""
+    """A dict keyed by the model's parameter names as the JAX-layout
+    tree, stacked leaves stacked on the host."""
     tree: Dict[str, Any] = {}
-    for path, _d in iter_defs(lm_defs(cfg)):
+    for path, d in iter_defs(get_api(cfg).defs(cfg)):
         keys = path.split(".")
-        if keys[0] == "layers":
-            leaf = torch.stack([named[_layer_name(keys, i)].detach().cpu()
-                                for i in range(cfg.num_layers)])
-        else:
+        names = _leaf_names(keys, d)
+        if names == [((), path)]:
             leaf = named[path]
+        else:
+            leaf = torch.stack([named[n].detach().cpu() for _, n in names]
+                               ).reshape(d.shape)
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
@@ -250,36 +272,25 @@ def _unstack(tree: Dict[str, Any], cfg: ModelConfig,
     """The inverse of ``_stack_named``, each leaf copied to ``device``
     in the dtype it has in ``tree``."""
     named: Dict[str, torch.Tensor] = {}
-    for path, d in iter_defs(lm_defs(cfg)):
-        keys = path.split(".")
-        leaf = tree
-        for k in keys:
-            leaf = leaf[k]
-        src = _tensor(leaf)
-        if tuple(src.shape) != d.shape:
-            raise ValueError(f"{path}: shape {tuple(src.shape)}, expected "
-                             f"{d.shape}")
-        if keys[0] == "layers":
-            for i in range(cfg.num_layers):
-                named[_layer_name(keys, i)] = src[i].to(device, copy=True)
-        else:
-            named[path] = src.to(device, copy=True)
+    for path, d in iter_defs(get_api(cfg).defs(cfg)):
+        src = _tree_leaf(tree, path, d)
+        for idx, name in _leaf_names(path.split("."), d):
+            named[name] = src[idx].to(device, copy=True)
     return named
 
 
-def lm_params_to_numpy(model: LM) -> Dict[str, Any]:
-    """The ``LM``'s weights as a JAX-layout tree on the host (the
-    inverse of ``lm_params_from_numpy``): layer leaves stacked on a
-    leading ``layers`` axis; numpy arrays, except bf16 leaves, which
-    numpy cannot hold and stay CPU ``torch.bfloat16`` tensors
-    (``save_checkpoint`` writes them as the JAX package's bfloat16
-    leaves)."""
+def lm_params_to_numpy(model: nn.Module) -> Dict[str, Any]:
+    """The model's weights (any family) as a JAX-layout tree on the host
+    (the inverse of ``lm_params_from_numpy``): stacked leaves stacked
+    again; numpy arrays, except bf16 leaves, which numpy cannot hold and
+    stay CPU ``torch.bfloat16`` tensors (``save_checkpoint`` writes them
+    as the JAX package's bfloat16 leaves)."""
     return _stack_named(dict(model.named_parameters()), model.cfg)
 
 
 def adamw_state_to_numpy(state: Dict[str, Any], cfg: ModelConfig
                          ) -> Dict[str, Any]:
-    """The train step's AdamW state (moments keyed by the ``LM``'s
+    """The train step's AdamW state (moments keyed by the model's
     parameter names) in the JAX package's layout: ``m`` and ``v`` as
     ``lm_params_to_numpy`` lays out the weights, ``step`` an int32
     scalar."""

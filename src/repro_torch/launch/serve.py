@@ -17,10 +17,11 @@ from typing import List, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..configs import get_arch
 from ..device import resolve_device
-from ..models import LM, ModelConfig, get_api
+from ..models import ModelConfig, get_api
 from .steps import make_serve_step
 
 
@@ -54,7 +55,7 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str, batch: int = 4, prompt_len: int = 16,
           gen_len: int = 32, smoke: bool = True, seed: int = 0,
           device: Union[str, torch.device] = "cuda",
-          model: Optional[LM] = None) -> ServeResult:
+          model: Optional[nn.Module] = None) -> ServeResult:
     """Feed ``batch`` seeded prompts token by token through the serve
     step (the cache warm-up the reference calls prefill), then decode
     ``gen_len`` tokens greedily.  An ``embed_inputs`` arch decodes from

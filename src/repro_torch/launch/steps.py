@@ -10,8 +10,9 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
-from ..models import LM, ModelConfig, get_api
+from ..models import ModelConfig, get_api
 from ..optim import (AdamWConfig, CompressionConfig, adamw_update,
                      compress_gradients, cosine_schedule)
 
@@ -23,9 +24,9 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
     """train_step(params, opt_state, inputs [batch, seq], targets) ->
     (params, opt_state, {"loss", "grad_norm", "lr"}).
 
-    ``params`` is the ``LM``; the gradients and the AdamW state
-    (``adamw_init`` of ``dict(params.named_parameters())``) are keyed by
-    its parameter names.  The loss's gradients go through
+    ``params`` is the model (``get_api(cfg).build``); the gradients and
+    the AdamW state (``adamw_init`` of ``dict(params.named_parameters())``)
+    are keyed by its parameter names.  The loss's gradients go through
     ``compress_gradients`` (a no-op unless enabled) and ``adamw_update``
     at the cosine schedule's lr of the step *before* the update (warmup
     ``min(1000, total_steps // 10)``); the new weights are written into
@@ -37,9 +38,10 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
     lr_fn = cosine_schedule(opt.lr, warmup=min(1000, total_steps // 10),
                             total=total_steps)
 
-    def train_step(params: LM, opt_state: Dict[str, Any],
+    def train_step(params: nn.Module, opt_state: Dict[str, Any],
                    inputs: torch.Tensor, targets: torch.Tensor
-                   ) -> Tuple[LM, Dict[str, Any], Dict[str, torch.Tensor]]:
+                   ) -> Tuple[nn.Module, Dict[str, Any],
+                              Dict[str, torch.Tensor]]:
         if tuple(inputs.shape) != (batch, seq) \
                 or tuple(targets.shape) != (batch, seq):
             raise ValueError(f"train_step: expected inputs and targets of "

@@ -27,7 +27,6 @@ from ..data import DataConfig, TokenStream
 from ..device import resolve_device
 from ..models import ModelConfig, get_api
 from ..models.common import iter_defs
-from ..models.lm import lm_defs
 from ..optim import AdamWConfig, CompressionConfig, adamw_init
 from .steps import make_train_step
 
@@ -43,11 +42,11 @@ class TrainResult:
 
 
 def _checkpoint_like(cfg: ModelConfig) -> Dict[str, Any]:
-    """The ``{params, opt}`` tree's structure and shapes, for
-    ``load_checkpoint``: zero-size numpy stand-ins, so nothing is copied
-    off the device to restore."""
+    """The ``{params, opt}`` tree's structure and shapes (the family's
+    ``defs``), for ``load_checkpoint``: zero-size numpy stand-ins, so
+    nothing is copied off the device to restore."""
     tree: Dict[str, Any] = {}
-    for path, d in iter_defs(lm_defs(cfg)):
+    for path, d in iter_defs(get_api(cfg).defs(cfg)):
         keys = path.split(".")
         node = tree
         for k in keys[:-1]:

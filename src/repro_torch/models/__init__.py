@@ -1,4 +1,5 @@
-"""LM model stack (dense and MoE families) as PyTorch modules."""
+"""Model stacks as PyTorch modules: the dense and MoE transformer LM,
+rwkv and the jamba hybrid, behind one API per family (``get_api``)."""
 from .common import ModelConfig, ParamDef, init_params, param_count
 from .lm import LM, build_lm
 from .registry import ModelApi, get_api

@@ -13,12 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ..device import resolve_device
 
 
 # ======================================================================
@@ -28,23 +30,23 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 @dataclasses.dataclass
 class ModelConfig:
     """Field names and defaults follow the JAX package's ``ModelConfig``
-    for the dense and MoE transformer families.  Fields that nothing in
-    the port reads have no counterpart, so a config that sets one is
-    refused (``TypeError``) when it is made:
+    for the four families (dense and MoE transformers, rwkv, hybrid).
+    Fields that nothing in the port reads have no counterpart, so a
+    config that sets one is refused (``TypeError``) when it is made:
 
     - ``expert_affinity_placement``: nothing in the reference reads it
       either; placement is ``moe_apply``'s ``expert_perm`` argument
       (``models/placement.py``);
     - ``fsdp`` and ``seq_shard_decode``: they feed the reference's
-      sharding rules engine, which has no counterpart on one device;
-    - the rwkv and jamba fields (``ssm_d_state``, ``ssm_conv``,
-      ``ssm_expand``, ``ssm_scan_unroll``, ``rwkv_head_dim``,
-      ``chunk_size``, ``attn_every``, ``moe_every``): those families
-      are not ported yet (ROADMAP queue 1, "The other families").
+      sharding rules engine, which has no counterpart on one device.
 
     ``remat`` (none | full | dots) is read by the training forward
     only.  ``moe_sharded_ffn`` and ``moe_shard_map`` select the batched
-    dispatch, which is what the reference runs on one device."""
+    dispatch, which is what the reference runs on one device.
+    ``ssm_scan_unroll`` changes only how XLA schedules the reference's
+    selective scan, not its result; the port's scan is a Python loop
+    and reads nothing from it (the field stays so that jamba's
+    production profile loads)."""
     name: str = "model"
     family: str = "dense"          # dense | moe | rwkv | hybrid
     num_layers: int = 2
@@ -70,6 +72,16 @@ class ModelConfig:
     moe_grouped_dispatch: bool = False   # per-sequence routing
     moe_sharded_ffn: bool = False        # batched dispatch
     moe_shard_map: bool = False          # batched dispatch on one device
+    # rwkv / ssm options
+    ssm_d_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_scan_unroll: int = 1       # XLA's schedule only; unread here
+    rwkv_head_dim: int = 64
+    chunk_size: int = 128
+    # hybrid (jamba) options
+    attn_every: int = 8            # 1 attention layer per this many
+    moe_every: int = 2             # MoE FFN on every other layer
     # io
     embed_inputs: bool = False     # modality-frontend stub ([B,S,D] in)
     tie_embeddings: bool = False
@@ -134,6 +146,25 @@ def register_params(module: nn.Module, defs: Dict[str, ParamDef],
         module.register_parameter(name, nn.Parameter(
             torch.empty(d.shape, dtype=d.dtype, device=device),
             requires_grad=False))
+
+
+def cache_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a decode state is made on: ``"meta"`` (shapes and
+    dtypes, no storage: ``configs.input_specs``) or a device that
+    ``resolve_device`` admits."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
+def build_model(module: Callable[[Any, torch.device], nn.Module], cfg: Any,
+                device: Union[str, torch.device] = "cuda",
+                seed: int = 0) -> nn.Module:
+    """``module(cfg, device)`` with weights drawn on ``device`` from
+    ``torch.Generator(device).manual_seed(seed)`` (``init_params``).
+    Raises without CUDA unless ``device="cpu"`` is asked for."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_params(module(cfg, dev), gen)
 
 
 @torch.no_grad()
@@ -201,6 +232,14 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return torch.tanh(logits / cap) * cap
+
+
+def next_token_nll(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """Mean cross-entropy of ``targets`` under ``logits`` [..., V], the
+    log-softmax in float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
 
 
 # ======================================================================

@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
-from .common import (ModelConfig, ParamDef, init_params, maybe_remat,
-                     register_params, rms_norm, softcap)
+from .common import (ModelConfig, ParamDef, build_model, cache_device,
+                     maybe_remat, next_token_nll, register_params, rms_norm,
+                     softcap)
 from .layers import (MLP, Attention, MoE, attn_apply, attn_decode,
                      attn_defs, make_kv_cache, mlp_apply, mlp_defs,
                      moe_apply, moe_defs)
@@ -85,9 +85,8 @@ class LM(nn.Module):
         super().__init__()
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (ROADMAP "
-                f"queue 1, \"The other families\"); only 'dense' and "
-                f"'moe' are")
+                f"LM is the dense and MoE transformer; family "
+                f"{cfg.family!r} has its own model: get_api(cfg).build")
         self.cfg = cfg
         register_params(self, _top_defs(cfg), device)
         self.blocks = nn.ModuleList(Block(cfg, device)
@@ -96,12 +95,10 @@ class LM(nn.Module):
 
 def build_lm(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
              seed: int = 0) -> LM:
-    """The model with weights drawn on ``device`` from
-    ``torch.Generator(device).manual_seed(seed)`` (``init_params``).
-    Raises without CUDA unless ``device="cpu"`` is asked for."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(LM(cfg, dev), gen)
+    """The model with weights drawn on ``device`` from ``seed``
+    (``build_model``).  Raises without CUDA unless ``device="cpu"`` is
+    asked for."""
+    return build_model(LM, cfg, device, seed)
 
 
 # ----------------------------------------------------------------------
@@ -184,9 +181,7 @@ def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     """Mean next-token cross-entropy (the log-softmax in float32) plus
     ``aux_weight`` times the auxiliary loss."""
     logits, aux = lm_forward(cfg, params, tokens)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return nll.mean() + aux_weight * aux
+    return next_token_nll(logits, targets) + aux_weight * aux
 
 
 # ----------------------------------------------------------------------
@@ -199,7 +194,7 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed KV cache {k, v: [layers, B, cap, Hkv, Dh]}: ``cap`` is
     ``max_len``, or ``min(max_len, window)`` with a sliding window (a
     rolling buffer)."""
-    return make_kv_cache(cfg, batch, max_len, resolve_device(device),
+    return make_kv_cache(cfg, batch, max_len, cache_device(device),
                          stacked_layers=cfg.num_layers)
 
 

@@ -1,9 +1,9 @@
-"""Model API by family, as in the JAX package's registry.  The dense
-and MoE transformers share one API; rwkv and hybrid (jamba) are not
-ported yet and raise, naming the ROADMAP entry that covers them.
+"""Model API by family, as in the JAX package's registry: the dense and
+MoE transformers share one API; rwkv and hybrid (jamba) have their own.
 
   defs(cfg)                          -> ParamDef tree (stacked layers)
-  build(cfg, device, seed)           -> the parameter module
+  module(cfg, device)                -> the parameter module, uninitialised
+  build(cfg, device, seed)           -> the parameter module, drawn
   apply(cfg, params, inputs)         -> (logits, aux)      [prefill]
   loss(cfg, params, inputs, targets) -> scalar loss        [train]
   init_cache(cfg, batch, max_len, device) -> decode state
@@ -12,15 +12,19 @@ ported yet and raise, naming the ROADMAP entry that covers them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict
 
+from . import jamba as _jamba
 from . import lm as _lm
-from .common import ModelConfig
+from . import rwkv as _rwkv
+from .common import ModelConfig, build_model
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     defs: Callable
+    module: Callable
     build: Callable
     apply: Callable
     loss: Callable
@@ -28,14 +32,25 @@ class ModelApi:
     decode: Callable
 
 
-_TRANSFORMER = ModelApi(_lm.lm_defs, _lm.build_lm, _lm.lm_apply,
+_TRANSFORMER = ModelApi(_lm.lm_defs, _lm.LM, _lm.build_lm, _lm.lm_apply,
                         _lm.lm_loss, _lm.lm_init_cache, _lm.lm_decode)
 
-_REGISTRY: Dict[str, ModelApi] = {"dense": _TRANSFORMER, "moe": _TRANSFORMER}
+_REGISTRY: Dict[str, ModelApi] = {
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
+    "rwkv": ModelApi(_rwkv.rwkv_defs, _rwkv.RWKV,
+                     functools.partial(build_model, _rwkv.RWKV),
+                     _rwkv.rwkv_apply, _rwkv.rwkv_loss,
+                     _rwkv.rwkv_init_cache, _rwkv.rwkv_decode),
+    "hybrid": ModelApi(_jamba.jamba_defs, _jamba.Jamba,
+                       functools.partial(build_model, _jamba.Jamba),
+                       _jamba.jamba_apply, _jamba.jamba_loss,
+                       _jamba.jamba_init_cache, _jamba.jamba_decode),
+}
+
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family not in _REGISTRY:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue 1, \"The other families\"); have {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown model family {cfg.family!r}; "
+                       f"have {sorted(_REGISTRY)}")
     return _REGISTRY[cfg.family]

@@ -1,5 +1,8 @@
-"""The port's eight transformer archs against the JAX package, on their
-smoke configs: parameter trees and counts, config fields, the forward
+"""The port's archs against the JAX package, on their smoke configs:
+for all ten, parameter trees and counts, config fields, ``input_specs``,
+``all_cells`` and the published dimensions; for the eight transformer
+archs (rwkv and jamba: ``test_torch_rwkv.py``, ``test_torch_jamba.py``)
+the forward
 with the flash path on in float32 and bf16, the decode loop (mixtral's
 16-token window wrapped), ``serve()``, ``input_specs``, ``all_cells``,
 the published dimensions, ``lm_loss`` with its MoE aux loss and its
@@ -45,19 +48,18 @@ from repro_torch.models import ModelConfig, get_api, param_count
 from repro_torch.models.common import iter_defs
 from repro_torch.models import lm as tlm
 from repro_torch.models.layers import moe_routing
-from repro_torch.models.lm import lm_defs
 from repro_torch.optim import AdamWConfig, adamw_init
 
 ARCHS = sorted(tconfigs.ARCHS)
-NEW_ARCHS = [a for a in ARCHS if a != "qwen3-1.7b"]   # qwen3: test_torch_lm
+LM_ARCHS = [a for a in ARCHS
+            if tconfigs.get_arch(a).config.family in ("dense", "moe")]
+NEW_ARCHS = [a for a in LM_ARCHS if a != "qwen3-1.7b"]  # qwen3: test_torch_lm
 MOE_ARCHS = ["mixtral-8x7b", "qwen2-moe-a2.7b"]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.25)}
 # the JAX package's config fields that the port leaves out (the
 # docstring of the port's ModelConfig says why)
-UNPORTED_FIELDS = {"expert_affinity_placement", "fsdp", "seq_shard_decode",
-                   "ssm_d_state", "ssm_conv", "ssm_expand", "ssm_scan_unroll",
-                   "rwkv_head_dim", "chunk_size", "attn_every", "moe_every"}
+UNPORTED_FIELDS = {"expert_affinity_placement", "fsdp", "seq_shard_decode"}
 FORWARD_SHAPE = (2, 256)
 # bf16 routing: a near-tie is a K-th and (K+1)-th router probability
 # within 2^-10 (about a quarter of bf16's 2^-8 relative step at the
@@ -129,25 +131,31 @@ def _dtype_name(dt):
 # Structure: trees, counts, config fields, specs, cells
 # ----------------------------------------------------------------------
 
+PUBLISHED_COUNTS = {"qwen2-moe-a2.7b": 14_315_735_040,
+                    "rwkv6-1.6b": 1_583_941_632,
+                    "jamba-1.5-large-398b": 398_555_111_424}
+
+
 @pytest.mark.parametrize("cfg_name", ["config", "smoke"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_matches_jax(arch, cfg_name):
     """Same leaves, shapes, axes, init rules and dtypes as the JAX
-    ``lm_defs``, and the same ``param_count``."""
+    family's ``defs``, and the same ``param_count``."""
     jcfg = getattr(jconfigs.get_arch(arch), cfg_name)
     tcfg = getattr(tconfigs.get_arch(arch), cfg_name)
     jdefs = j_get_api(jcfg).defs(jcfg)
     jleaves = jax.tree_util.tree_flatten_with_path(jdefs, is_leaf=j_is_def)[0]
     jmap = {".".join(k.key for k in path): d for path, d in jleaves}
-    tmap = dict(iter_defs(lm_defs(tcfg)))
+    tdefs = get_api(tcfg).defs(tcfg)
+    tmap = dict(iter_defs(tdefs))
     assert sorted(jmap) == list(tmap)
     for path, d in tmap.items():
         j = jmap[path]
         assert (d.shape, d.axes, d.init, d.scale, _dtype_name(d.dtype)) == (
             j.shape, j.axes, j.init, j.scale, _dtype_name(j.dtype)), path
-    assert param_count(lm_defs(tcfg)) == j_param_count(jdefs)
-    if (arch, cfg_name) == ("qwen2-moe-a2.7b", "config"):
-        assert param_count(lm_defs(tcfg)) == 14_315_735_040
+    assert param_count(tdefs) == j_param_count(jdefs)
+    if cfg_name == "config" and arch in PUBLISHED_COUNTS:
+        assert param_count(tdefs) == PUBLISHED_COUNTS[arch]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -209,12 +217,11 @@ def test_all_cells_match_jax():
         want = [c for c in jconfigs.all_cells(include_skipped=skipped)
                 if c[0] in tconfigs.ARCHS]
         assert tconfigs.all_cells(include_skipped=skipped) == want
-    assert set(jconfigs.ARCHS) - set(tconfigs.ARCHS) == {
-        "rwkv6-1.6b", "jamba-1.5-large-398b"}
+    assert list(tconfigs.ARCHS) == list(jconfigs.ARCHS)
 
 
 def test_exact_published_configs():
-    """tests/test_archs.py's published dimensions, for the ported archs."""
+    """tests/test_archs.py's published dimensions."""
     c = tconfigs.get_arch("mixtral-8x7b").config
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size, c.num_experts, c.top_k) == \
@@ -224,9 +231,16 @@ def test_exact_published_configs():
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size) == (126, 16384, 128, 8, 53248, 128256)
     assert c.remat == "full"
+    c = tconfigs.get_arch("jamba-1.5-large-398b").config
+    assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads,
+            c.num_experts, c.top_k, c.attn_every) == \
+        (72, 8192, 64, 8, 16, 2, 8)
     c = tconfigs.get_arch("qwen2-moe-a2.7b").config
     assert (c.num_experts, c.top_k, c.num_shared_experts, c.moe_d_ff) == \
         (60, 4, 4, 1408)
+    c = tconfigs.get_arch("rwkv6-1.6b").config
+    assert (c.num_layers, c.d_model, c.d_ff, c.vocab_size) == \
+        (24, 2048, 7168, 65536)
     c = tconfigs.get_arch("nemotron-4-15b").config
     assert c.mlp_act == "sq_relu" and c.vocab_size == 256000
     c = tconfigs.get_arch("qwen2.5-3b").config
@@ -256,14 +270,15 @@ def _kept(idx, capacity):
     return np.sort(np.where(pos < capacity, e, -1).reshape(idx.shape), -1)
 
 
-def _record_routing(monkeypatch, jcfg, tcfg):
-    """Wrap both packages' ``moe_apply`` as their ``lm`` modules call it:
+def _record_routing(monkeypatch, jcfg, tcfg, jmod=jlm, tmod=tlm):
+    """Wrap both packages' ``moe_apply`` as their model modules call it
+    (``jmod`` / ``tmod``: the ``lm`` modules, or jamba's):
     per MoE layer and token the expert set and the kept experts (the
     JAX side through ``jax.debug.callback``, from inside its jit and
     scan), and the reference's top-k margin, p_K - p_K+1 of the
     router's softmax.  For the flat dispatch of the smoke configs."""
     got, want = [], []
-    j_inner, t_inner = jlm.moe_apply, tlm.moe_apply
+    j_inner, t_inner = jmod.moe_apply, tmod.moe_apply
     K = jcfg.top_k
 
     def j_route(h, router):
@@ -287,13 +302,37 @@ def _record_routing(monkeypatch, jcfg, tcfg):
         got.append((np.sort(idx, -1), np.sort(np.where(keep, idx, -1), -1)))
         return t_inner(cfg, p, h, *a, **kw)
 
-    monkeypatch.setattr(jlm, "moe_apply", j_moe)
-    monkeypatch.setattr(tlm, "moe_apply", t_moe)
+    monkeypatch.setattr(jmod, "moe_apply", j_moe)
+    monkeypatch.setattr(tmod, "moe_apply", t_moe)
     return got, want
 
 
+def routed_alike(got_r, want_r, dtype, n):
+    """The positions (of ``n``) that every MoE layer routed alike in
+    both packages, from ``_record_routing``'s records: in float32 all
+    of them; in bf16 a position that goes to other experts must be a
+    near-tie there (or have gone apart in an earlier layer), one that
+    keeps other experts behind a full expert must be in a layer where
+    some token went apart, and at most ``BF16_APART_SHARE`` of them may
+    differ."""
+    alike = np.ones(n, bool)
+    for (t_set, t_kept), (j_set, j_kept, margin) in zip(got_r, want_r):
+        flipped = (t_set != j_set).any(-1)
+        kept = (t_kept != j_kept).any(-1)
+        if dtype == "float32":
+            assert not flipped.any() and not kept.any()
+        # a token routed apart in an earlier layer enters this one with
+        # another hidden state; any other must be a near-tie here
+        new = flipped & alike
+        assert (margin[new] < BF16_ROUTING_TIE).all(), margin[new]
+        assert flipped.any() or not kept.any()
+        alike &= ~(flipped | kept)
+    assert (~alike).mean() <= BF16_APART_SHARE, (~alike).sum()
+    return alike
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_forward_with_flash_matches_jax(arch, dtype, monkeypatch,
                                         no_launches):
     """Logits and the aux loss of the flash-path forward at 2 x 256.
@@ -323,23 +362,11 @@ def test_forward_with_flash_matches_jax(arch, dtype, monkeypatch,
     assert torch.equal(make_forward_step(tcfg)(model, torch.from_numpy(x)),
                        got)
     tol = DTYPES[dtype][2]
-    alike = np.ones(np.prod(FORWARD_SHAPE), bool)
     # the port's layers ran twice (apply, then the forward step)
     layers = tcfg.num_layers if tcfg.num_experts else 0
     assert len(got_r) == 2 * layers and len(want_r) == layers
-    for (t_set, t_kept), (j_set, j_kept, margin) in zip(got_r, want_r):
-        flipped = (t_set != j_set).any(-1)
-        kept = (t_kept != j_kept).any(-1)
-        if dtype == "float32":
-            assert not flipped.any() and not kept.any()
-        # a token routed apart in an earlier layer enters this one with
-        # another hidden state; any other must be a near-tie here
-        new = flipped & alike
-        assert (margin[new] < BF16_ROUTING_TIE).all(), margin[new]
-        assert flipped.any() or not kept.any()
-        alike &= ~(flipped | kept)
-    assert (~alike).mean() <= BF16_APART_SHARE, (~alike).sum()
-    alike = alike.reshape(FORWARD_SHAPE)
+    alike = routed_alike(got_r, want_r, dtype, np.prod(FORWARD_SHAPE)
+                         ).reshape(FORWARD_SHAPE)
     np.testing.assert_allclose(_f32(got)[alike], _f32(want)[alike],
                                atol=tol, rtol=tol)
     np.testing.assert_allclose(float(taux), float(jaux), atol=tol, rtol=tol)
@@ -347,7 +374,7 @@ def test_forward_with_flash_matches_jax(arch, dtype, monkeypatch,
         assert float(taux) > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_decode_loop_matches_jax(arch, no_launches):
     """24 decode steps from an empty cache, logits within 1e-4 at every
     step; mixtral's cache is a 16-slot rolling buffer, so it wraps."""
@@ -425,12 +452,14 @@ def test_lm_loss_and_gradients_match_jax(arch):
     assert float(np.abs(_f32(got["layers"]["moe"]["router"])).max()) > 0
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS + ["musicgen-medium"])
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["musicgen-medium",
+                                             "qwen2.5-3b"])
 def test_checkpoint_round_trip(arch, tmp_path):
     """bf16 weights and float32 AdamW moments of a MoE (stacked [L, E, D,
-    F] experts, the float32 router, shared experts) or an embed-less
-    tree: through ``convert`` bit for bit, and through checkpoints
-    written by one package and read by the other."""
+    F] experts, the float32 router, shared experts), an embed-less or a
+    dense tree (QKV biases): through ``convert``'s family-generic path
+    bit for bit, and through checkpoints written by one package and
+    read by the other."""
     jcfg, tcfg = _configs(arch, "bfloat16")
     params, model = _weights(arch, "bfloat16")
     tree = convert.lm_params_to_numpy(model)

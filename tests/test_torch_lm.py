@@ -180,20 +180,30 @@ def test_forward_matches_decode_in_the_port(no_launches):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("change", [{"family": "rwkv"}, {"family": "hybrid"},
-                                   {"ssm_d_state": 16},
-                                   {"rwkv_head_dim": 64},
-                                   {"attn_every": 8}, {"chunk_size": 128}])
+@pytest.mark.parametrize("change", [{"fsdp": True},
+                                    {"seq_shard_decode": True},
+                                    {"expert_affinity_placement": True},
+                                    {"family": "ssm"},
+                                    {"family": "rwkv"},
+                                    {"family": "hybrid", "num_layers": 12}])
 def test_unported_options_raise(change):
-    """A family still to port (rwkv, hybrid) raises naming its ROADMAP
-    entry; an option of those families has no config field, so setting
-    it is refused when the config is made."""
+    """What the port still refuses: the three reference fields it has no
+    counterpart for (a ``TypeError`` when the config is made), a family
+    no package has (``KeyError``), the transformer ``LM`` built for
+    another family (it names ``get_api``), and a jamba whose layers are
+    not a multiple of ``attn_every`` (``ValueError``, as the
+    reference's ``jamba.py:28-31``)."""
     if "family" not in change:
         with pytest.raises(TypeError, match=next(iter(change))):
             dataclasses.replace(tqwen3.SMOKE, **change)
         return
     cfg = dataclasses.replace(tqwen3.SMOKE, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_api(cfg).build(cfg, "cpu", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(cfg, device="cpu")
+    if cfg.family == "ssm":
+        with pytest.raises(KeyError, match="unknown model family"):
+            get_api(cfg)
+    elif cfg.family == "rwkv":
+        with pytest.raises(NotImplementedError, match="get_api"):
+            build_lm(cfg, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="multiple of attn_every"):
+            get_api(cfg).build(cfg, "cpu", 0)
