@@ -119,7 +119,22 @@ Phases, each fatal on any error or mismatch:
    with the spmd serve's answers.  Then the JAX package's seeded ledger
    benches (``spmd_comm``, ``spmd_replication``, ``spmd_routing``) on
    the card, held to their properties and to the JAX package's totals.
-8. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
+8. distributed, once the sessions above are freed: the graph's columns
+   and the vertical plan written under the checkout's ``build/``
+   (``np.save``, ``PartitionPlan.save``); ``torch.cuda.device_count()``
+   ranks spawned (``repro_torch.launch.mesh.launch``, an NCCL group
+   from a file store, rank r on ``cuda:r``, a timeout on the group and
+   a deadline on the phase), each loading them, running ``spmd_match``
+   on the three shapes untimed, and serving the phase 4 queries
+   through ``Session(plan, backend="spmd", mesh=...)`` on its
+   block of the 4 slots, with ``execute`` and then with
+   ``execute_many`` on a fresh session: every rank's answers,
+   per-query ledger (bytes and the deltas of ``LEDGER_COUNTERS``) and
+   counters equal the one-process sessions' of phase 4, and every join
+   kernel launches on every rank.  A line with the world size, the
+   backend, the slots, qps, the collective calls and the join kernels'
+   launches per rank.
+9. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, the model paths' head layouts (g = 8, g = 16, MHA at D 64, a
    window inside S), rows with no visible key, one layer at 1 x 32768),
@@ -173,7 +188,7 @@ Phases, each fatal on any error or mismatch:
    every prompt position at factor E / K with the routing replayed; one
    mamba layer at full width in float32 on the card against the CPU (1 x
    256: the output and the final scan and conv states).
-9. train: ``ops.attention`` refuses a q that requires grad (no launch);
+10. train: ``ops.attention`` refuses a q that requires grad (no launch);
    one float32 train step at qwen3-1.7b's width with 2 layers on the
    card and on the CPU from the same weights and batches (loss and
    grad norm within the stated tolerances, and the loss of a second
@@ -187,12 +202,12 @@ Phases, each fatal on any error or mismatch:
    ninth step under the profiler (device busy share, largest kernels).
    The launch counts are set to 0 before the refusal and read after
    the ninth step: ``flash_attention``'s ``paths.train`` is that count.
-10. the kernels as one JSON line (each with the path it launched on and
+11. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path (flash on
    ``lm``, ``moe``, ``archs``, ``jamba`` and ``train``), the join
    kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
-   ``adaptive``, ``horizontal``, ``shape`` and ``warp``), the card
-   line, and last the result.
+   ``adaptive``, ``horizontal``, ``shape``, ``warp`` and
+   ``distributed``), the card line, and last the result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
@@ -1190,11 +1205,24 @@ def served_queries(graph) -> list:
     return queries + [shapes["star"], shapes["chain"], shapes["cycle"]]
 
 
-def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
+#: the engine counters a query's ledger line holds beside its bytes
+LEDGER_COUNTERS = ("capacity_retries", "gather_steps", "edge_shipped_steps",
+                   "edge_cache_hits", "skipped_gathers")
+
+
+def _counters(session) -> tuple:
+    extra = session.stats().extra
+    return tuple(int(extra[k]) for k in LEDGER_COUNTERS)
+
+
+def serve_phase(session, plain, graph, queries, card: str):
     """Serve ``queries`` through ``session`` between a reset and a read
     of the launch counters; then hold every answer set against
     ``plain`` (the same engine on the plain versions) and a subset
-    against the host ``match_pattern``.  Returns the launch counts."""
+    against the host ``match_pattern``.  Returns the launch counts, the
+    results and the serve's ledger: per query its bytes and the deltas
+    of ``LEDGER_COUNTERS``, and the engine's counters after the
+    serve."""
     from unittest import mock
 
     from repro_torch.core import match_pattern
@@ -1204,17 +1232,22 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
     ops.reset_launches()
     lat: List[float] = []
     results = []
-    retries: List[int] = []
+    deltas: List[tuple] = []
     t_serve = time.perf_counter()
     for q in queries:
-        before = _retries(session)
+        before = _counters(session)
         t0 = time.perf_counter()
         results.append(session.execute(q))
         lat.append(time.perf_counter() - t0)
-        retries.append(_retries(session) - before)
+        deltas.append(tuple(a - b for a, b in zip(_counters(session),
+                                                  before)))
     t_serve = time.perf_counter() - t_serve
+    retries = [d[0] for d in deltas]
     launches = dict(ops.LAUNCHES)
     st = session.stats()
+    ledger = {"per_query": [(r.stats.comm_bytes,) + d
+                            for r, d in zip(results, deltas)],
+              "extra": dict(st.extra), "qps": len(queries) / t_serve}
     print(f"launches on the serve path: {launches}", flush=True)
     lat_ms = np.asarray(lat) * 1e3
     print(f"serve ({card}): {len(queries)} queries in {t_serve:.2f} s, "
@@ -1269,7 +1302,7 @@ def serve_phase(session, plain, graph, queries, card: str) -> Dict[str, int]:
           f"({time.perf_counter() - t0:.1f} s); rows of the shape queries "
           f"{[r.num_rows for r in results[SERVED:]]}", flush=True)
     serve_profile(session, queries)
-    return launches, results
+    return launches, results, ledger
 
 
 def _retries(session) -> int:
@@ -1322,11 +1355,12 @@ def serve_profile(session, queries) -> None:
                    own_kernels=True)
 
 
-def serve_many_phase(plan, queries, results, card: str) -> Dict[str, int]:
+def serve_many_phase(plan, queries, results, card: str):
     """The same queries through ``Session.execute_many`` in batches of
     64 on a fresh engine: queries of one shape inside a batch share one
     run of the match loop.  Every answer set must equal the ``execute``
-    serve's.  Returns the launch counts of the batched serve."""
+    serve's.  Returns the launch counts of the batched serve and its
+    ledger: bytes per query and the engine's counters."""
     from repro_torch.core import Session
     from repro_torch.kernels import ops
     session = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
@@ -1355,7 +1389,9 @@ def serve_many_phase(plan, queries, results, card: str) -> Dict[str, int]:
                  f"{ra.shape[0]} rows, execute {rb.shape[0]}")
     print(f"execute_many: {len(queries)} answer sets equal the execute "
           f"serve's", flush=True)
-    return launches
+    return launches, {"per_query": [r.stats.comm_bytes for r in many],
+                      "extra": dict(st.extra),
+                      "qps": len(queries) / secs}
 
 
 # ----------------------------------------------------------------------
@@ -1423,8 +1459,8 @@ def matcher_phase(graph, store, shapes, want, card: str,
     overflow: List[int] = []
     build = spmd_module.make_spmd_matcher
 
-    def recording(pattern, capacity):
-        fn = build(pattern, capacity)
+    def recording(pattern, capacity, mesh=None):
+        fn = build(pattern, capacity, mesh)
 
         def run(st):
             out = fn(st)
@@ -4067,6 +4103,201 @@ def train_phase(card: str, dev: str = "cuda") -> int:
     return launches["flash_attention"]
 
 
+# ----------------------------------------------------------------------
+# Distributed phase: the engine across a process group
+# ----------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 300.0     # a collective waiting longer fails its group
+DIST_DEADLINE_S = 420.0    # every rank answers within this, or all end
+
+
+def answer_digest(result) -> str:
+    """SHA-256 of a result's variables and ``answer_rows``."""
+    import hashlib
+    h = hashlib.sha256(repr(sorted(result.bindings)).encode())
+    if result.bindings:
+        h.update(np.ascontiguousarray(answer_rows(result.bindings)).tobytes())
+    return h.hexdigest()
+
+
+def distributed_handoff(graph, plan, queries, results, ledger,
+                        many_ledger) -> dict:
+    """Write the graph's columns and the plan (``PartitionPlan.save``)
+    to a fresh directory under the checkout's ``build/``, for the ranks
+    to load, beside the one-process serve's answers and ledgers."""
+    import tempfile
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="distributed-", dir=base))
+    t0 = time.perf_counter()
+    for c in ("s", "p", "o"):
+        np.save(out / f"{c}.npy", getattr(graph, c))
+    (out / "graph.json").write_text(json.dumps({
+        "num_vertices": int(graph.num_vertices),
+        "num_properties": int(graph.num_properties)}))
+    plan.save(out / "plan")
+    size = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    print(f"distributed handoff: graph and plan written in "
+          f"{time.perf_counter() - t0:.1f} s ({size} bytes)", flush=True)
+    return {"dir": str(out),
+            "edges": [[(e.src, e.dst, e.prop) for e in q.edges]
+                      for q in queries],
+            "digests": [answer_digest(r) for r in results],
+            "ledger": ledger, "many": many_ledger}
+
+
+def _sync(dev: str) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def distributed_rank(handoff_dir: str, query_edges, dev: str) -> dict:
+    """One rank of the distributed phase: the graph and the plan loaded
+    from the handoff, a ``SITES``-slot mesh over the whole group (rank r
+    on ``cuda:r``), the queries served with ``execute`` on one session
+    and with ``execute_many`` (batches of 64) on a fresh one.  Before
+    the timed serve, ``spmd_match`` runs the three shape queries once
+    at ``MATCH_CAPACITY`` on the session's shard (untimed and outside
+    the session's counters), so that the group's communicator set-up
+    and the rank's first kernel and collective calls fall outside the
+    qps; the launch and collective counts are set to 0 after it, before
+    the first query, and read after the last.  Returns what it served:
+    answer digests, ledgers, counters, seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.core import PartitionPlan, QueryGraph, RDFGraph, Session
+    from repro_torch.core.spmd import (COLLECTIVES, reset_collectives,
+                                       spmd_match)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    d = Path(handoff_dir)
+    t0 = time.perf_counter()
+    meta = json.loads((d / "graph.json").read_text())
+    graph = RDFGraph(*(np.load(d / f"{c}.npy") for c in "spo"),
+                     meta["num_vertices"], meta["num_properties"])
+    plan = PartitionPlan.load(d / "plan", graph)
+    mesh = make_host_mesh(SITES, group=dist.group.WORLD, device=dev)
+    queries = [QueryGraph.make(e) for e in query_edges]
+    out = {"backend": dist.get_backend(), "world": mesh.world,
+           "device": str(mesh.device), "slots": list(mesh.local_slots),
+           "load_s": time.perf_counter() - t0}
+
+    def session():
+        t = time.perf_counter()
+        sess = Session(plan, backend="spmd", device=dev,
+                       spmd_max_capacity=MAX_CAPACITY, mesh=mesh)
+        _sync(dev)
+        return sess, time.perf_counter() - t
+
+    sess, out["store_s"] = session()
+    t0 = time.perf_counter()
+    for q in queries[SERVED:]:
+        spmd_match(sess.engine.store, q, MATCH_CAPACITY, mesh=mesh)
+    _sync(dev)
+    out["warm_s"] = time.perf_counter() - t0
+    ops.reset_launches()
+    reset_collectives()
+    results, per_query = [], []
+    t0 = time.perf_counter()
+    for q in queries:
+        before = _counters(sess)
+        results.append(sess.execute(q))
+        per_query.append((results[-1].stats.comm_bytes,) + tuple(
+            a - b for a, b in zip(_counters(sess), before)))
+    _sync(dev)
+    out["execute_s"] = time.perf_counter() - t0
+    out["execute"] = {"per_query": per_query,
+                      "extra": dict(sess.stats().extra),
+                      "digests": [answer_digest(r) for r in results],
+                      "launches": dict(ops.LAUNCHES),
+                      "collectives": dict(COLLECTIVES)}
+    del sess, results
+    sess, _ = session()
+    t0 = time.perf_counter()
+    many = sess.execute_many(queries, batch_size=64)
+    _sync(dev)
+    out["many_s"] = time.perf_counter() - t0
+    out["many"] = {"per_query": [r.stats.comm_bytes for r in many],
+                   "extra": dict(sess.stats().extra),
+                   "digests": [answer_digest(r) for r in many]}
+    out["launches"] = dict(ops.LAUNCHES)
+    out["collectives"] = dict(COLLECTIVES)
+    return out
+
+
+def distributed_phase(card: str, handoff: dict, dev: str = "cuda"
+                      ) -> Dict[str, int]:
+    """The served queries on ``torch.cuda.device_count()`` ranks of an
+    NCCL group (a gloo group of one rank when ``dev`` is the CPU), each
+    rank on its own card with its block of the ``SITES`` slots, through
+    ``Session(plan, backend="spmd", mesh=...)``: every rank's answers,
+    per-query bytes and counter deltas (``execute``) and per-query
+    bytes (``execute_many``), and its counters after each serve, equal
+    the one-process session's; every join kernel launches on every
+    rank.  Returns rank 0's launches."""
+    import shutil
+
+    from repro_torch.launch.mesh import launch
+    on_card = torch.device(dev).type == "cuda"
+    world = torch.cuda.device_count() if on_card else 1
+    backend = "nccl" if on_card else "gloo"
+    t0 = time.perf_counter()
+    try:
+        outs = launch(distributed_rank, world, handoff["dir"],
+                      backend=backend,
+                      args=(handoff["dir"], handoff["edges"], dev),
+                      timeout_s=DIST_TIMEOUT_S, deadline_s=DIST_DEADLINE_S)
+    finally:
+        shutil.rmtree(handoff["dir"], ignore_errors=True)
+    secs = time.perf_counter() - t0
+    n = len(handoff["edges"])
+    for r, o in enumerate(outs):
+        if on_card and (o["backend"] != "nccl" or o["device"] != f"cuda:{r}"):
+            fail(f"distributed: rank {r} ran {o['backend']} on "
+                 f"{o['device']}")
+        for what, got, want in (
+                ("execute answers", o["execute"]["digests"],
+                 handoff["digests"]),
+                ("execute ledger", o["execute"]["per_query"],
+                 handoff["ledger"]["per_query"]),
+                ("execute counters", o["execute"]["extra"],
+                 handoff["ledger"]["extra"]),
+                ("execute_many answers", o["many"]["digests"],
+                 handoff["digests"]),
+                ("execute_many ledger", o["many"]["per_query"],
+                 handoff["many"]["per_query"]),
+                ("execute_many counters", o["many"]["extra"],
+                 handoff["many"]["extra"])):
+            if got != want:
+                bad = ([i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b] if isinstance(got, list) else
+                       sorted(k for k in set(got) | set(want)
+                              if got.get(k) != want.get(k)))
+                fail(f"distributed: rank {r}'s {what} differ from the "
+                     f"one-process session's at {bad[:10]}")
+        missing = [k for k in JOIN_KERNELS
+                   if on_card and (o["execute"]["launches"][k] <= 0
+                                   or o["launches"][k] <= 0)]
+        if missing:
+            fail(f"distributed: rank {r} never launched {missing}")
+    print(f"distributed ({card}): world {world}, backend {backend}, "
+          f"{SITES} slots ({[o['slots'] for o in outs]}), {n} queries; "
+          f"execute qps="
+          f"{[round(n / o['execute_s'], 3) for o in outs]} "
+          f"(one process {handoff['ledger']['qps']:.3f}), execute_many "
+          f"qps={[round(n / o['many_s'], 3) for o in outs]} (one process "
+          f"{handoff['many']['qps']:.3f}); load {outs[0]['load_s']:.1f} s, "
+          f"store {outs[0]['store_s']:.1f} s, untimed warm-up "
+          f"{outs[0]['warm_s']:.2f} s, phase {secs:.1f} s; "
+          f"collective calls per rank (execute, then both) "
+          f"{[(o['execute']['collectives'], o['collectives']) for o in outs]}"
+          f"; join kernel launches per rank "
+          f"{[{k: o['launches'][k] for k in JOIN_KERNELS} for o in outs]}; "
+          f"answers, per-query ledger and counters of every rank equal the "
+          f"one-process session's", flush=True)
+    return {k: outs[0]["launches"][k] for k in JOIN_KERNELS}
+
+
 def rdf_setup():
     """Phase 2: the WatDiv graph, its design workload, the 4-site plan
     and a session serving it on the card."""
@@ -4093,7 +4324,7 @@ def rdf_setup():
     return graph, design, plan, session
 
 
-def spmd_phase(card: str) -> Dict[str, dict]:
+def spmd_phase(card: str):
     """Phases 2 to 7: the WatDiv plan, the join kernels, the served
     queries (``execute``, its profile, then ``execute_many``), the
     front door, the online adaptive loop, the horizontal / SHAPE / WARP
@@ -4101,14 +4332,16 @@ def spmd_phase(card: str) -> Dict[str, dict]:
     Returns the records of the kernels checked against the store, with
     their launches on the ``execute`` serve (``spmd``), on the front
     door's served pass (``serve``), on the adaptive stream
-    (``adaptive``) and on each strategy's serve."""
+    (``adaptive``) and on each strategy's serve; and the handoff of the
+    distributed phase (``distributed_handoff``)."""
     from repro_torch.core import Session
     graph, design, plan, session = rdf_setup()
     kernels = kernel_phase(session.engine.store)
     queries = served_queries(graph)
     plain = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
     torch.cuda.reset_peak_memory_stats()
-    launches, results = serve_phase(session, plain, graph, queries, card)
+    launches, results, ledger = serve_phase(session, plain, graph, queries,
+                                            card)
     print(f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
           f"bytes ({card})", flush=True)
     missing = [k for k, (_s, _t, path) in KERNELS.items()
@@ -4116,11 +4349,13 @@ def spmd_phase(card: str) -> Dict[str, dict]:
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
     del plain
-    many = serve_many_phase(plan, queries, results, card)
+    many, many_ledger = serve_many_phase(plan, queries, results, card)
     missing = [k for k, (_s, _t, path) in KERNELS.items()
                if path == "spmd" and many[k] <= 0]
     if missing:
         fail(f"kernels never launched on the execute_many serve: {missing}")
+    handoff = distributed_handoff(graph, plan, queries, results, ledger,
+                                  many_ledger)
     matcher = matcher_phase(graph, session.engine.store, queries[SERVED:],
                             [answer_rows(r.bindings)
                              for r in results[SERVED:]], card)
@@ -4146,7 +4381,7 @@ def spmd_phase(card: str) -> Dict[str, dict]:
                                    "adaptive": adaptive[k],
                                    **{kind: strategies[kind][k]
                                       for kind in STRATEGY_KINDS}}
-    return kernels
+    return kernels, handoff
 
 
 def ptxas_lines(name: str) -> List[str]:
@@ -4209,8 +4444,14 @@ def main() -> None:
         for line in ptxas_lines(name):
             print(f"ptxas {name}: {line}", flush=True)
 
-    kernels = spmd_phase(card)
+    kernels, handoff = spmd_phase(card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_launches = distributed_phase(card, handoff)
+    for k, n in dist_launches.items():
+        kernels[k]["paths"]["distributed"] = n
+    print(f"phase seconds: distributed {time.perf_counter() - t0:.1f}",
+          flush=True)
     t0 = time.perf_counter()
     kernels["flash_attention"] = lm_phase(card)
     torch.cuda.empty_cache()

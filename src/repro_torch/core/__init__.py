@@ -12,7 +12,8 @@ Pipeline (offline):
     warp_fragmentation), bundled by ``build_plan`` into a
     ``PartitionPlan`` (strategies registered in ``STRATEGIES``).
 Online, through ``Session`` over one ``Engine`` protocol:
-    "spmd"      spmd.SpmdEngine                (the sites on one GPU)
+    "spmd"      spmd.SpmdEngine                (the sites on one GPU or
+                                               across a process group)
     "local"     executor.DistributedEngine     (§7.2-7.3, Algorithms 3+4)
     "baseline"  baselines.BaselineEngine       (SHAPE/WARP model)
     "adaptive"  online.AdaptiveEngine          (drift -> refragment ->

@@ -406,14 +406,19 @@ class PartitionPlan:
                           cost: Optional[CostModel] = None,
                           max_capacity: Optional[int] = None,
                           comm_plan: bool = True,
-                          routing: bool = True):
+                          routing: bool = True,
+                          mesh=None):
         """Build the ``SpmdEngine`` over this plan's per-site storage.
 
         Args:
             device: where the store lives and the joins run ("cuda" by
                 default; "cpu" runs the kernels' plain versions).
-            num_devices: width of the site axis the logical sites fold
-                onto (default: one slot per logical site).
+            num_devices: width of the one-process site axis the logical
+                sites fold onto (default: one slot per logical site).
+            mesh: a ``repro_torch.launch.mesh.SiteMesh`` to fold the
+                sites onto instead; on a process group every rank builds
+                its shard on its own device and must make the same
+                calls.
             capacity: starting per-site binding-table rows (doubled
                 transparently on overflow).
             cost: optional ``CostModel``.
@@ -429,7 +434,7 @@ class PartitionPlan:
                           cost=cost, max_capacity=max_capacity,
                           comm_plan=comm_plan,
                           replicated_props=set(self.replicated_props),
-                          routing=routing)
+                          routing=routing, mesh=mesh)
 
     # -- serialization (built on repro_torch.checkpoint) --------------
     def save(self, path) -> Path:

@@ -4,9 +4,10 @@ A ``PartitionPlan`` says *where the data lives*; a ``Session`` says *how
 queries run against it*.  The same plan can be served by three backends
 through the one ``Engine`` protocol:
 
-* ``"spmd"``     -- the plan's sites in lock step on one device
-                    (``repro_torch.core.spmd``), the join kernels in
-                    the match loop;
+* ``"spmd"``     -- the plan's sites in lock step on one device, or
+                    in blocks across the ranks of a process group with
+                    ``mesh=`` (``repro_torch.core.spmd``), the join
+                    kernels in the match loop;
 * ``"local"``    -- the paper's exact host ``DistributedEngine`` over
                     the fragment allocation (Algorithms 3+4);
 * ``"baseline"`` -- the gather-all ``BaselineEngine`` over the plan's
@@ -57,6 +58,7 @@ class Session:
                  spmd_max_capacity: Optional[int] = None,
                  spmd_comm_plan: bool = True,
                  spmd_routing: bool = True,
+                 mesh=None,
                  trace: bool = False,
                  tracer=None,
                  metrics_registry=None):
@@ -86,6 +88,10 @@ class Session:
                 tables before every join step.
             spmd_routing: per-query site routing (default on; inactive
                 without the planner).
+            mesh: a ``repro_torch.launch.mesh.SiteMesh`` for the spmd
+                backend, in place of ``spmd_devices``: the sites fold
+                onto its slots, and on a process group every rank
+                serves its shard (every rank makes the same calls).
             trace: ``True`` builds a private enabled ``Tracer`` for this
                 session (a root span per query with its ``comm_step``
                 records).
@@ -112,7 +118,7 @@ class Session:
                 device=device, num_devices=spmd_devices,
                 capacity=spmd_capacity, cost=cost,
                 max_capacity=spmd_max_capacity, comm_plan=spmd_comm_plan,
-                routing=spmd_routing)
+                routing=spmd_routing, mesh=mesh)
         elif backend == "adaptive":
             # lazy import: online imports core, not the other way round
             from ..online.loop import AdaptiveEngine

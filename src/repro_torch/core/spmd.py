@@ -1,14 +1,21 @@
-"""SPMD distributed subgraph matching on one GPU: the plan's sites run in
-lock step over a leading site axis.
+"""SPMD distributed subgraph matching: the plan's sites run in lock step
+over a site axis, in one process or across a process group.
 
 The reference runs one program per mesh device under ``shard_map`` and
-calls its collectives from inside that per-device code.  Here every
-site's state is a list of per-site tensors, and the match loop walks
-the join steps in order: all sites finish step k before step k's
-collective runs.  The collectives (``SiteAxis``: ``all_gather``,
-``psum``, ``axis_index``) are tensor ops along dimension 0 of the
-per-site parts, behind a small interface that a ``torch.distributed``
-backend can take over later.
+calls its collectives from inside that per-device code.  Here each
+process holds the sites of its block of the axis as lists of per-site
+tensors, and the match loop walks the join steps in order: all sites
+finish step k before step k's collective runs.  The collectives
+(``SiteAxis``: ``all_gather``, ``psum``, ``axis_index``) take the local
+per-site parts.  On the one-process axis (the default) every site is
+local and they are tensor ops along dimension 0; on a mesh built on a
+``torch.distributed`` process group (``repro_torch.launch.mesh``) each
+rank holds a contiguous block of sites on its own device and they are
+NCCL (gloo on the CPU) collectives, ``ProcessGroupAxis``.  That axis is
+multi-controller: every rank runs the same calling code and calls
+``execute`` / ``execute_many`` on the same queries in the same order;
+every rank then takes the same decisions and returns the same answers
+and ledger.
 
 Everything the reference decides per join step is kept:
 
@@ -19,9 +26,9 @@ Everything the reference decides per join step is kept:
   count is compared with the property's resident edge bytes (in
   float32, as the reference's in-trace predicate) and the smaller side
   is gathered.  The reference's ``lax.cond`` predicate is the same on
-  every device; here it is one host read per dynamic step.  A gathered
-  edge table is cached across the steps of one query that share a
-  property (``COMM_EDGE_CACHED``, free);
+  every device; here it is one host read per dynamic step, after the
+  all-reduce.  A gathered edge table is cached across the steps of one
+  query that share a property (``COMM_EDGE_CACHED``, free);
 * **seed decimation** and **routing** -- step 0 stripes the seeds of a
   shard-complete property across the sites (or the route members), and
   sites outside a query's route never seed.
@@ -43,12 +50,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import INT32_SENTINEL
 from ..device import resolve_device
 from ..kernels import ref as kref
 from ..kernels.ops import (compact_rows, dedup_rows_masked,
                            fused_join_sites, join_range, pair_semijoin_runs)
+from ..launch.mesh import SiteMesh
 from .engine import EngineBase
 from .executor import CostModel, ExecStats, QueryResult
 from .fragmentation import Fragmentation
@@ -82,6 +91,57 @@ class SiteAxis:
         return site
 
 
+#: collective calls of every ``ProcessGroupAxis`` since the last
+#: ``reset_collectives()``
+COLLECTIVES: Dict[str, int] = {"all_gather": 0, "all_reduce": 0}
+
+
+def reset_collectives() -> None:
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+
+
+class ProcessGroupAxis(SiteAxis):
+    """Collectives over a site axis split into contiguous blocks over
+    the ranks of a process group (``SiteMesh``): each method takes this
+    rank's per-site parts and returns what every rank receives.  Every
+    rank's parts have the same shapes (the store's static windows and
+    the capacity tier size them), so the all-gather in rank order gives
+    the rows in slot order, as ``SiteAxis`` concatenates them."""
+
+    def __init__(self, mesh: SiteMesh):
+        self.group = mesh.group
+        self.world = mesh.world
+        self.slot0 = mesh.local_slots.start
+
+    def all_gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        local = torch.cat(list(parts), 0).contiguous()
+        flags = local.dtype == torch.bool
+        send = local.view(torch.uint8) if flags else local
+        out = send.new_empty((self.world * send.shape[0],)
+                             + tuple(send.shape[1:]))
+        if send.numel():
+            dist.all_gather_into_tensor(out, send, group=self.group)
+            COLLECTIVES["all_gather"] += 1
+        return out.view(torch.bool) if flags else out
+
+    def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        total = torch.stack(list(parts)).sum(0).to(torch.int64)
+        dist.all_reduce(total, group=self.group)
+        COLLECTIVES["all_reduce"] += 1
+        return total
+
+    def axis_index(self, site: int) -> int:
+        return self.slot0 + site
+
+
+def mesh_axis(mesh: Optional[SiteMesh]) -> SiteAxis:
+    """The collectives of ``mesh``'s site axis."""
+    if mesh is None or mesh.group is None:
+        return SiteAxis()
+    return ProcessGroupAxis(mesh)
+
+
 # ----------------------------------------------------------------------
 # Site-sharded storage
 # ----------------------------------------------------------------------
@@ -110,31 +170,53 @@ class SiteStore:
     windows are sliced with static offsets.  Key columns pad with
     ``INT32_SENTINEL``, payloads with -1, and the arrays run ``csr_pad``
     rows past the last run so a window never leaves the array.
+
+    On a process-group mesh a rank's store is its shard: the metadata
+    and ``csr_offs`` stay global, over all ``num_sites`` slots (they
+    size every collective, which must agree on every rank), and the
+    device arrays hold the ``num_local`` slots from ``slot0`` on.
+    ``axis`` is the store's ``SiteAxis``.
     """
     num_sites: int
     e_max: int
     prop_dev_rows: np.ndarray       # (m, P) int64
     prop_dev_distinct: np.ndarray   # (m, P) int64
     prop_union_rows: np.ndarray     # (P,) int64
-    csr_sub_s: torch.Tensor         # (m, e_max + csr_pad) int32
+    csr_sub_s: torch.Tensor         # (local slots, e_max + csr_pad) int32
     csr_sub_o: torch.Tensor
     csr_obj_o: torch.Tensor
     csr_obj_s: torch.Tensor
     csr_offs: np.ndarray            # (m, P + 1) int64
     csr_pad: int
     prop_dev_owned: np.ndarray      # (m, P) int64
-    owned: torch.Tensor             # (m, e_max + csr_pad) bool
+    owned: torch.Tensor             # (local slots, e_max + csr_pad) bool
+    slot0: int = 0
+    axis: SiteAxis = dataclasses.field(default_factory=SiteAxis)
 
     @property
     def device(self) -> torch.device:
         return self.csr_sub_s.device
 
+    @property
+    def num_local(self) -> int:
+        """Slots whose tables this store holds."""
+        return self.csr_sub_s.shape[0]
+
     @staticmethod
     def build(graph: RDFGraph, site_edge_ids: Sequence[np.ndarray],
               device: Union[str, torch.device] = "cuda",
-              pad_multiple: int = 512) -> "SiteStore":
-        dev = resolve_device(device)
+              pad_multiple: int = 512,
+              mesh: Optional[SiteMesh] = None) -> "SiteStore":
+        """The store of ``site_edge_ids`` (one id array per slot) on
+        ``device``, or, with a ``mesh``, this rank's shard on the
+        mesh's device."""
         m = len(site_edge_ids)
+        if mesh is None:
+            dev, local = resolve_device(device), range(m)
+        elif mesh.slots != m:
+            raise ValueError(f"{m} sites for a mesh of {mesh.slots} slots")
+        else:
+            dev, local = mesh.device, mesh.local_slots
         e_max = max((len(e) for e in site_edge_ids), default=1)
         e_max = int(np.ceil(max(e_max, 1) / pad_multiple) * pad_multiple)
         n_props = graph.num_properties
@@ -148,8 +230,7 @@ class SiteStore:
         per_site = []
         for j, eids in enumerate(site_edge_ids):
             eids = np.asarray(eids, np.int64)
-            s, p, o = graph.s[eids], graph.p[eids], graph.o[eids]
-            order = np.lexsort((o, s, p))
+            p = graph.p[eids]
             n = len(eids)
             dev_rows[j] = np.bincount(p, minlength=n_props)[:n_props]
             dev_distinct[j] = np.bincount(
@@ -160,7 +241,10 @@ class SiteStore:
             owner[eids[claim]] = j
             dev_owned[j] = np.bincount(
                 p[claim], minlength=n_props)[:n_props]
-            per_site.append((s, p, o, order, claim[order]))
+            if j in local:
+                s, o = graph.s[eids], graph.o[eids]
+                order = np.lexsort((o, s, p))
+                per_site.append((s, p, o, order, claim[order]))
         resident = np.unique(np.concatenate(
             [np.zeros(0, np.int64)]
             + [np.asarray(e, np.int64) for e in site_edge_ids]))
@@ -169,27 +253,28 @@ class SiteStore:
         # ask for (max per-site run, rounded like prop_window)
         pad = int(np.ceil(max(int(dev_rows.max(initial=1)), 1) / 8) * 8)
         width = e_max + pad
-        sub_s = np.full((m, width), INT32_SENTINEL, np.int32)
-        sub_o = np.full((m, width), -1, np.int32)
-        obj_o = np.full((m, width), INT32_SENTINEL, np.int32)
-        obj_s = np.full((m, width), -1, np.int32)
-        offs = np.zeros((m, n_props + 1), np.int64)
-        owned = np.zeros((m, width), bool)
+        k = len(per_site)
+        sub_s = np.full((k, width), INT32_SENTINEL, np.int32)
+        sub_o = np.full((k, width), -1, np.int32)
+        obj_o = np.full((k, width), INT32_SENTINEL, np.int32)
+        obj_s = np.full((k, width), -1, np.int32)
+        owned = np.zeros((k, width), bool)
         for j, (s, p, o, order, claim_sorted) in enumerate(per_site):
             n = len(order)
             sub_s[j, :n], sub_o[j, :n] = s[order], o[order]
             owned[j, :n] = claim_sorted
             order_o = np.lexsort((s, o, p))
             obj_o[j, :n], obj_s[j, :n] = o[order_o], s[order_o]
-            offs[j, 1:] = np.cumsum(
-                np.bincount(p, minlength=n_props)[:n_props])
+        offs = np.zeros((m, n_props + 1), np.int64)
+        offs[:, 1:] = np.cumsum(dev_rows, 1)
 
         def put(a):
             return torch.from_numpy(a).to(dev)
 
         return SiteStore(m, e_max, dev_rows, dev_distinct, union,
                          put(sub_s), put(sub_o), put(obj_o), put(obj_s),
-                         offs, pad, dev_owned, put(owned))
+                         offs, pad, dev_owned, put(owned), local.start,
+                         mesh_axis(mesh))
 
     def prop_shard_complete(self, prop: int) -> bool:
         """Every site holds every resident edge of ``prop`` (a join step
@@ -447,11 +532,11 @@ def pattern_var_order(pattern: QueryGraph) -> List[int]:
 
 @dataclasses.dataclass
 class MatchOutput:
-    """What one run of the match loop returns: per-site binding tables
-    and validity masks (the final gather concatenates them; columns in
-    ``_var_col_trace`` order), per-site overflow row counts, the
-    per-step decision codes (host ints) and shipped-row counts (device
-    scalars)."""
+    """What one run of the match loop returns: the local sites' binding
+    tables and validity masks (the final gather collects every site's;
+    columns in ``_var_col_trace`` order), every site's overflow row
+    count, the per-step decision codes (host ints) and shipped-row
+    counts (device scalars)."""
     binds: List[torch.Tensor]
     valids: List[torch.Tensor]
     overflow: torch.Tensor          # (m,) int32
@@ -488,9 +573,15 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
     route), across the ``route_width`` route members; sites outside the
     route never seed.  Overflow (result rows beyond capacity at any
     step) is counted, never silently dropped.
+
+    The loop walks the store's local sites (all of them on the
+    one-process axis, this rank's block on a process group); ``m``
+    stays the global site count wherever it sizes what was gathered.
     """
     m = store.num_sites
-    axis = SiteAxis() if m > 1 else None
+    axis = store.axis if m > 1 else None
+    sites = range(store.num_local)
+    slot = [store.slot0 + j for j in sites]     # local site -> slot
     dev = store.device
     order = _connected_edge_order(pattern)
     edges = pattern.edges
@@ -506,7 +597,7 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
     def csr_window(j: int, prop: int, subject_side: bool,
                    size: Optional[int] = None, pay_fill: int = -1
                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """(keys, payload, live rows) of site j's packed run of
+        """(keys, payload, live rows) of local site j's packed run of
         ``prop``: a static-size window over the pre-sorted CSR arrays,
         tail masked to the sentinels (a window can spill into the next
         property's run)."""
@@ -517,22 +608,24 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
                     torch.full((size,), pay_fill, dtype=_I32, device=dev), 0)
         arrk, arrp = ((store.csr_sub_s, store.csr_sub_o) if subject_side
                       else (store.csr_obj_o, store.csr_obj_s))
-        start = int(offs[j, prop])
-        n = int(offs[j, prop + 1]) - start
+        start = int(offs[slot[j], prop])
+        n = int(offs[slot[j], prop + 1]) - start
         live = torch.arange(size, device=dev) < n
         return (torch.where(live, arrk[j, start:start + size], imax),
                 torch.where(live, arrp[j, start:start + size], pay_fill), n)
 
     def site_windows(prop: int) -> kref.SiteWindows:
-        """Every site's ``csr_window`` of ``prop`` as the kernels read it
-        in place: offsets into row j of the CSR arrays and live rows."""
+        """Every local site's ``csr_window`` of ``prop`` as the kernels
+        read it in place: offsets into row j of the CSR arrays and live
+        rows."""
         size = windows.get(prop, 8)
         if not 0 <= prop < n_props:
-            return kref.SiteWindows((0,) * m, (0,) * m, size)
-        starts = tuple(int(offs[j, prop]) for j in range(m))
+            return kref.SiteWindows((0,) * len(sites), (0,) * len(sites),
+                                    size)
+        starts = tuple(int(offs[g, prop]) for g in slot)
         return kref.SiteWindows(
-            starts, tuple(int(offs[j, prop + 1]) - starts[j]
-                          for j in range(m)), size)
+            starts, tuple(int(offs[g, prop + 1]) - a
+                          for g, a in zip(slot, starts)), size)
 
     def owned_run_window(j: int, prop: int, size: int,
                          n_live: int) -> torch.Tensor:
@@ -540,13 +633,15 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
         size)``, tail masked."""
         if not 0 <= prop < n_props:
             return torch.zeros(size, dtype=torch.bool, device=dev)
-        start = int(offs[j, prop])
+        start = int(offs[slot[j], prop])
         return store.owned[j, start:start + size] \
             & (torch.arange(size, device=dev) < n_live)
 
-    binds = [torch.full((capacity, 0), -1, dtype=_I32, device=dev)] * m
-    valids = [torch.zeros(capacity, dtype=torch.bool, device=dev)] * m
-    ovf = [torch.zeros((), dtype=_I32, device=dev)] * m
+    binds = [torch.full((capacity, 0), -1, dtype=_I32, device=dev)
+             ] * len(sites)
+    valids = [torch.zeros(capacity, dtype=torch.bool, device=dev)
+              ] * len(sites)
+    ovf = [torch.zeros((), dtype=_I32, device=dev)] * len(sites)
     decs: List[int] = []
     shipped_rows: List[torch.Tensor] = []
     # cross-step edge-gather cache: prop -> gathered (keys(s), payload(o))
@@ -560,7 +655,7 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
         if step == 0:
             # seed from each site's packed run of the property
             cols_j: List[Tuple[torch.Tensor, torch.Tensor]] = []
-            for j in range(m):
+            for j in sites:
                 seed_s, seed_o, n_live = csr_window(j, e.prop, True)
                 sel = torch.arange(seed_s.shape[0], device=dev) < n_live
                 if e.src >= 0:
@@ -611,7 +706,7 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
             if cached is not None:
                 return cached
             parts_s, parts_o = [], []
-            for j in range(m):
+            for j in sites:
                 fk, fp, n_run = csr_window(j, e.prop, True, pay_fill=imax)
                 ow = owned_run_window(j, e.prop, fk.shape[0], n_run)
                 (ls, lo_), _ = compact_rows(ow, (fk, fp), sc.gather_cap)
@@ -657,23 +752,26 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
             # m runs of the edge-shipped table
             def pair_col(bts, v):
                 """Query column of endpoint ``v`` over the binding
-                tables ``bts``: (C,) for one table, (m, C) for m."""
-                nr = bts[0].shape[0]
+                tables ``bts``: (C,) for the one table every site shares
+                (a gathered one), (k, C) for the k local sites' tables
+                (a list, one row a site, also when k is 1)."""
+                shared = isinstance(bts, torch.Tensor)
+                nr = (bts if shared else bts[0]).shape[0]
                 if v >= 0:
                     col = torch.full((nr,), v, dtype=_I32, device=dev)
-                    return col if len(bts) == 1 else col.expand(len(bts), nr)
+                    return col if shared else col.expand(len(bts), nr)
                 c = col_idx(v)
-                return bts[0][:, c] if len(bts) == 1 \
+                return bts[:, c] if shared \
                     else torch.stack([b[:, c] for b in bts])
 
             if via_gather:
                 gb, gv, shipped = gathered_bindings()
                 gb, gv = _dedup_padded(gb, gv)
                 keep = gv & pair_semijoin_runs(
-                    pair_col([gb], e.src), pair_col([gb], e.dst),
+                    pair_col(gb, e.src), pair_col(gb, e.dst),
                     store.csr_sub_s, store.csr_sub_o, 1,
                     site_windows(e.prop))
-                for j in range(m):
+                for j in sites:
                     binds[j], valids[j], over = _compress_rows(
                         gb, keep[j], capacity)
                     ovf[j] = torch.maximum(ovf[j], over)
@@ -688,7 +786,7 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
                     g_s, g_o = gathered_prop_tables()
                     edge_cache[e.prop] = (g_s, g_o)
                     keep = pair_semijoin_runs(sv, dv, g_s, g_o, m)
-                for j in range(m):
+                for j in sites:
                     valids[j] = valids[j] & keep[j]
                     binds[j] = torch.where(valids[j][:, None], binds[j], -1)
         else:
@@ -702,7 +800,7 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
                 return (torch.full((nr,), known, dtype=_I32, device=dev)
                         if known >= 0 else bt[:, col_idx(known)])
 
-            new_cols: List[torch.Tensor] = [None] * m
+            new_cols: List[torch.Tensor] = [None] * len(sites)
             if via_gather:
                 # one call joins the gathered table against every site's
                 # window, read in place from the CSR arrays
@@ -712,21 +810,21 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
                 nb, nc, nv, over = fused_join_sites(
                     gb, gv, probe_vals(gb), arrk, arrp, capacity,
                     site_windows(e.prop))
-                for j in range(m):
+                for j in sites:
                     binds[j], new_cols[j], valids[j] = nb[j], nc[j], nv[j]
                     ovf[j] = torch.maximum(ovf[j], over[j])
                 row_v = shipped
             else:
                 if mode == "skip":
                     tables = [csr_window(j, e.prop, s_known)[:2]
-                              for j in range(m)]
+                              for j in sites]
                 else:
                     g_s, g_o = gathered_prop_tables()
                     edge_cache[e.prop] = (g_s, g_o)
                     gk, gp = (g_s, g_o) if s_known else (g_o, g_s)
                     gorder = torch.argsort(gk, stable=True)
-                    tables = [(gk[gorder], gp[gorder])] * m
-                for j in range(m):
+                    tables = [(gk[gorder], gp[gorder])] * len(sites)
+                for j in sites:
                     binds[j], new_cols[j], valids[j], over = _expand_fixed(
                         binds[j], valids[j], probe_vals(binds[j]),
                         *tables[j], capacity)
@@ -737,14 +835,15 @@ def _match_sites(store: SiteStore, pattern: QueryGraph, capacity: int,
                 binds = [torch.cat([b, c[:, None]], 1)
                          for b, c in zip(binds, new_cols)]
             else:
-                for j in range(m):
+                for j in sites:
                     valids[j] = valids[j] & (new_cols[j] == new_var)
                     binds[j] = torch.where(valids[j][:, None], binds[j], -1)
 
         decs.append(dec_v)
         shipped_rows.append(row_v.to(torch.int64))
 
-    overflow = torch.stack(ovf).clamp(min=0)
+    overflow = (axis.all_gather([o.reshape(1) for o in ovf])
+                if axis is not None else torch.stack(ovf)).clamp(min=0)
     return MatchOutput(binds, valids, overflow, decs, shipped_rows)
 
 
@@ -781,23 +880,46 @@ def local_match(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
     return out.binds[0], out.valids[0], pattern_var_order(pattern)
 
 
-def make_spmd_matcher(pattern: QueryGraph, capacity: int
+def _check_store_mesh(store: SiteStore, mesh: Optional[SiteMesh]) -> None:
+    """Refuse a store that is not this rank's shard of ``mesh``."""
+    if mesh is None:
+        return
+    got = (store.num_sites, store.slot0, store.num_local,
+           getattr(store.axis, "group", None))
+    want = (mesh.slots, mesh.local_slots.start, len(mesh.local_slots),
+            mesh.group)
+    if got != want:
+        raise ValueError(f"a store of slots {store.slot0}.."
+                         f"{store.slot0 + store.num_local} of "
+                         f"{store.num_sites} is not this rank's shard of "
+                         f"the mesh (slots {mesh.local_slots.start}.."
+                         f"{mesh.local_slots.stop} of {mesh.slots}): "
+                         f"build it with the mesh")
+
+
+def make_spmd_matcher(pattern: QueryGraph, capacity: int,
+                      mesh: Optional[SiteMesh] = None
                       ) -> Callable[[SiteStore], Tuple[torch.Tensor, ...]]:
     """The match loop for ``pattern`` at one capacity as a function of a
     ``SiteStore``, shipping bindings every join step: ``fn(store)``
     returns the gathered binding tables (num_sites * capacity, V),
     their validity mask, the per-site overflow row counts (num_sites,)
-    and the per-join-step decision and shipped-row vectors.  The
-    reference's factory takes a mesh and the store's arrays; here the
-    sites are the store's site axis and the windows come from the
-    store.  A non-zero overflow entry means that site's table filled:
-    retry at a higher capacity for an exact answer."""
+    and the per-join-step decision and shipped-row vectors, the same on
+    every rank.  The reference's factory takes a mesh and the store's
+    arrays; here the windows come from the store and the sites run on
+    the store's site axis: on a process group, a store built with the
+    ``mesh`` (``SiteStore.build(..., mesh=)``), this rank's shard.  A
+    ``mesh`` given here is only checked against the store's.  A
+    non-zero overflow entry means that site's table filled: retry at a
+    higher capacity for an exact answer."""
     _refuse_wildcards(pattern)
 
     def fn(store: SiteStore) -> Tuple[torch.Tensor, ...]:
+        _check_store_mesh(store, mesh)
         out = _match_sites(store, pattern, capacity)
         dev = store.device
-        return (torch.cat(out.binds, 0), torch.cat(out.valids, 0),
+        return (store.axis.all_gather(out.binds),
+                store.axis.all_gather(out.valids),
                 out.overflow,
                 torch.tensor(out.decisions, dtype=_I32, device=dev),
                 torch.stack(out.shipped).to(_I32) if out.shipped
@@ -806,13 +928,15 @@ def make_spmd_matcher(pattern: QueryGraph, capacity: int
     return fn
 
 
-def spmd_match(store: SiteStore, pattern: QueryGraph, capacity: int = 4096
+def spmd_match(store: SiteStore, pattern: QueryGraph, capacity: int = 4096,
+               mesh: Optional[SiteMesh] = None
                ) -> Tuple[np.ndarray, List[int]]:
     """Run the SPMD matcher over the store's sites (bindings shipped
-    every step) and return the deduped host-side binding rows and their
-    column order."""
-    bind, valid, _ovf, _dec, _rows = make_spmd_matcher(pattern,
-                                                       capacity)(store)
+    every step; ``mesh`` as in ``make_spmd_matcher``) and return the
+    deduped host-side binding rows and their column order, the same on
+    every rank."""
+    bind, valid, _ovf, _dec, _rows = make_spmd_matcher(
+        pattern, capacity, mesh)(store)
     rows = bind[valid].cpu().numpy()
     if rows.size:
         rows = np.unique(rows, axis=0)
@@ -828,7 +952,10 @@ class SpmdEngine(EngineBase):
 
     Logical sites fold round-robin onto ``num_devices`` slots of the
     site axis (the reference's mesh devices; by default one slot per
-    logical site), every join step broadcast-joins across them, and
+    logical site) or onto the slots of ``mesh`` (a ``SiteMesh``; on a
+    process group every rank builds its shard and runs the same calls,
+    and every rank returns the same answers, ledger and counters),
+    every join step broadcast-joins across them, and
     constants are normalized out of the matched pattern and re-applied
     as a filter -- so the static per-step plan is keyed by query
     **shape** x **capacity tier** x store generation.
@@ -856,9 +983,20 @@ class SpmdEngine(EngineBase):
                  max_capacity: Optional[int] = None,
                  comm_plan: bool = True,
                  replicated_props: Optional[set] = None,
-                 routing: bool = True):
+                 routing: bool = True,
+                 mesh: Optional[SiteMesh] = None):
         self._init_engine_base()
         self.device = resolve_device(device)
+        if mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"device {self.device} for a mesh on "
+                                 f"{mesh.device}")
+            if num_devices is not None and int(num_devices) != mesh.slots:
+                raise ValueError(f"num_devices={num_devices} for a mesh "
+                                 f"of {mesh.slots} slots")
+            self.device = mesh.device
+            num_devices = mesh.slots
+        self.mesh = mesh
         self.graph = graph
         # provenance from the replication pass: attributes skip
         # decisions to replication in the counters (residency metadata,
@@ -875,7 +1013,7 @@ class SpmdEngine(EngineBase):
         self.store = SiteStore.build(
             graph, [np.unique(np.concatenate(g)) if g
                     else np.zeros(0, np.int64) for g in folded],
-            device=self.device)
+            device=self.device, mesh=mesh)
         self.capacity = int(capacity)
         self.max_capacity = max(int(max_capacity) if max_capacity is not None
                                 else max(self.capacity, 1 << 20),
@@ -1004,13 +1142,14 @@ class SpmdEngine(EngineBase):
         while True:
             caps.append(cap)
             out = self._matcher(norm, cap)()
-            # one host read per attempt: overflow, shipped rows, final rows
+            # one host read per attempt, after the collectives: overflow,
+            # shipped rows, final rows (every rank's)
             n_steps = len(out.shipped)
+            n_final = self.store.axis.psum([v.sum() for v in out.valids])
             host = torch.cat([out.overflow.to(torch.int64),
                               torch.stack(out.shipped) if n_steps else
                               out.overflow.new_zeros(0, dtype=torch.int64),
-                              torch.stack([v.sum() for v in out.valids]
-                                          ).sum().reshape(1)]).cpu().numpy()
+                              n_final.reshape(1)]).cpu().numpy()
             m = self.store.num_sites
             attempts.append((np.asarray(out.decisions, np.int32),
                              host[m:m + n_steps].astype(np.int32),
@@ -1050,13 +1189,14 @@ class SpmdEngine(EngineBase):
             out, caps, attempts = self._run_exact(norm)
             if self._shared_run_key == norm.edges:
                 self._shared_run = (out, caps, attempts)
-        # final gather; the constants the normalization stripped are
-        # applied on the device before the distinct rows come back
+        # final gather of every site's rows (to every rank); the
+        # constants the normalization stripped are applied on the device
+        # before the distinct rows come back
         nmap = query.normalization_map()
         var_order, step_in_cols = _var_col_trace(norm)
         col_of = {nv: i for i, nv in enumerate(var_order)}
-        bind = torch.cat(out.binds, 0)
-        keep = torch.cat(out.valids, 0)
+        bind = self.store.axis.all_gather(out.binds)
+        keep = self.store.axis.all_gather(out.valids)
         for orig, nv in nmap.items():
             if orig >= 0:
                 keep = keep & (bind[:, col_of[nv]] == orig)
@@ -1209,7 +1349,8 @@ class SpmdEngine(EngineBase):
         object survives a re-partition, so a serving front door keeps
         the same engine handle across plan versions.
 
-        The new store is built on ``self.device`` *before* any engine
+        The new store (on a mesh, each rank's shard) is built on
+        ``self.device`` *before* any engine
         state changes, then installed together with the planner caches'
         invalidation in one host-side step -- the engine is
         single-threaded, so an execute runs entirely on the old store or
@@ -1228,7 +1369,7 @@ class SpmdEngine(EngineBase):
         store = SiteStore.build(
             graph, [np.unique(np.concatenate(g)) if g
                     else np.zeros(0, np.int64) for g in folded],
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         # install: everything planned against the old store's residency
         # (routes, comm specs, seed decimation, capacity hints) is
         # invalid for the new placement

@@ -1,9 +1,10 @@
 """Distributed runtime utilities: elastic re-planning after a failure
-(mesh shapes and the RDF allocation over the surviving sites),
-straggler mitigation and the work-stealing queue the migration planner
-schedules through."""
-from .elastic import MeshPlan, plan_mesh, replan_allocation
+(mesh shapes, the site mesh of the survivors and the RDF allocation
+over the surviving sites), straggler mitigation and the work-stealing
+queue the migration planner schedules through."""
+from .elastic import (ElasticMeshManager, MeshPlan, plan_mesh,
+                      replan_allocation)
 from .straggler import CompletedItem, StragglerMitigator, WorkItem, WorkQueue
 
-__all__ = ["MeshPlan", "plan_mesh", "replan_allocation",
+__all__ = ["ElasticMeshManager", "MeshPlan", "plan_mesh", "replan_allocation",
            "StragglerMitigator", "CompletedItem", "WorkItem", "WorkQueue"]

@@ -3,9 +3,9 @@
 Each wrapper dispatches on the device of its tensors and on nothing
 else: tensors on the CPU go to the plain version in ``ref.py``; tensors
 on a CUDA device launch the hand-written kernel (``csrc/``, built at
-first use by ``build.py``) on PyTorch's current stream, or the wrapper
-raises.  ``LAUNCHES`` counts kernel launches per wrapper, one per call
-that reached the card.
+first use by ``build.py``) on the current stream of that device, or the
+wrapper raises.  ``LAUNCHES`` counts kernel launches per wrapper, one
+per call that reached the card.
 
 ``compact_rows`` is plain tensor code on every device (a cumsum-scatter:
 torch has no ``nonzero(size=, fill_value=)``), as it is plain jnp in
@@ -80,13 +80,21 @@ def _table(name: str, bind: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream: tensors pass as
-    their data pointers, ``None`` as a null pointer, anything else (ints,
-    ctypes arrays of host values) as it is."""
+    """Launch kernel ``name`` on the current stream of its tensors'
+    device, with that device current (raising on tensors that span
+    devices or lie off the card): tensors pass as their data pointers,
+    ``None`` as a null pointer, anything else (ints, ctypes arrays of
+    host values) as it is."""
     from .build import kernel
-    stream = torch.cuda.current_stream().cuda_stream
-    err = kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                         for a in args), stream)
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: a launch takes tensors on one CUDA "
+                         f"device, got {sorted(str(d) for d in devs)}")
+    dev = devs.pop()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor)
+                             else a for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1

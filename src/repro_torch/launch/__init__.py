@@ -1,2 +1,3 @@
-"""Launchers of the LM substrate: the train, forward and serve steps,
-the training loop and the serve loop."""
+"""Launchers: the LM substrate's train, forward and serve steps, the
+training loop and the serve loop, and the SPMD engine's site meshes and
+process launcher (``mesh``)."""
