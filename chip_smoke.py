@@ -133,7 +133,23 @@ Phases, each fatal on any error or mismatch:
    counters equal the one-process sessions' of phase 4, and every join
    kernel launches on every rank.  A line with the world size, the
    backend, the slots, qps, the collective calls and the join kernels'
-   launches per rank.
+   launches per rank.  Then, on the same group, rank 0 leads
+   (``Session.lead``) and the other ranks follow (``Session.follow``):
+   the front door -- the phase 4 queries twice through
+   ``Session.serve()`` (every answer equal to phase 4's, every outcome
+   completed), a sequential pass, a capacity sweep at 1x (4x and 16x
+   are left to phase 5, for the time limit) and a hot swap to the same
+   placement through the door (the store
+   generation raised on every rank); every rank's per-query bytes and
+   counters equal rank 0's -- and phase 6's adaptive stream through
+   ``Session(plan, backend="adaptive", mesh=...)``, submitted once by
+   rank 0, which runs the control plane (the shapes on the data plane
+   before and after it on every rank): every rank's answers, bytes,
+   epoch reports, realized placement and counters equal phase 6's.
+   Lines with served qps, latency, the sweep, swap and
+   re-fragmentation seconds, qps before and after the swap beside
+   phase 6's, collective calls (broadcasts apart) and the join
+   kernels' launches per rank on each path.
 9. LM: ``flash_attention`` against its plain version (qwen3-1.7b's
    prefill shape, the JAX package's attention sweep in float32 and
    bf16, the model paths' head layouts (g = 8, g = 16, MHA at D 64, a
@@ -206,8 +222,9 @@ Phases, each fatal on any error or mismatch:
    its launches there, and ``paths``: launches per path (flash on
    ``lm``, ``moe``, ``archs``, ``jamba`` and ``train``), the join
    kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
-   ``adaptive``, ``horizontal``, ``shape``, ``warp`` and
-   ``distributed``), the card line, and last the result.
+   ``adaptive``, ``horizontal``, ``shape``, ``warp``, ``distributed``,
+   ``distributed_door`` and ``distributed_adaptive``), the card line,
+   and last the result.
 
 ``chip_baseline.py`` reuses phases of this script to measure an earlier
 commit's checkout in the same chip call as a change.
@@ -2480,15 +2497,12 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
     ops.reset_launches()
 
     def run_shapes() -> list:
-        # the monitor's hook is off meanwhile: the stream it sees is the
-        # drifting workload alone
-        hooks = list(spmd.post_execute_hooks)
-        spmd.post_execute_hooks.clear()
-        try:
-            return [answer_rows(spmd.execute(q).bindings) for q in shapes]
-        finally:
-            spmd.post_execute_hooks.extend(hooks)
+        res = data_plane_shapes(spmd, shapes)
+        shape_digests.extend(answer_digest(r) for r in res)
+        return [answer_rows(r.bindings) for r in res]
 
+    shape_digests: List[str] = []
+    digests, comm = [], []
     shape_answers = run_shapes()
     rows_before = spmd.store.prop_dev_rows.sum(1).tolist()
     t_stream = time.perf_counter()
@@ -2507,6 +2521,8 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
                 secs = time.perf_counter() - t
                 tracer.enabled = False
                 answers.append(answer_rows(r.bindings))
+                digests.append(answer_digest(r))
+                comm.append(int(r.stats.comm_bytes))
                 if trace:
                     _reconcile(tracer.store.spans()[-1:], spmd,
                                before.comm_bytes, before.extra,
@@ -2520,6 +2536,19 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
     peak = torch.cuda.max_memory_allocated()
     eng._repartition = repartition
     spmd.swap_store = swap_store
+    # what the distributed phase's adaptive stream is held to
+    record = {"stream": [[(e.src, e.dst, e.prop) for e in q.edges]
+                         for q in queries],
+              "digests": digests, "per_query": comm,
+              "shape_digests": shape_digests,
+              "epochs": epoch_dicts(eng), "placement":
+                  placement_digest(eng.plan),
+              "extra": dict(eng.stats().extra),
+              "inner_extra": dict(spmd.stats().extra),
+              "qps": {k: len(v) / sum(v) if v else 0.0
+                      for k, v in lat.items()},
+              "refragment_s": [rp["secs"] for rp in reparts.values()],
+              "swap_s": [sw["s"] for sw in swaps]}
 
     for ep in eng.epochs:
         d = ep.drift
@@ -2624,7 +2653,36 @@ def adaptive_serve(graph, plan, card: str, dev: str = "cuda"):
           f"({time.perf_counter() - t0:.1f} s, {card})", flush=True)
     del static
     torch.cuda.empty_cache()
-    return eng, launches
+    return eng, launches, record
+
+
+def data_plane_shapes(spmd, shapes) -> list:
+    """``shapes`` answered on an adaptive engine's SPMD data plane, with
+    the monitor's hook off meanwhile: the stream it sees is the drifting
+    workload alone."""
+    hooks = list(spmd.post_execute_hooks)
+    spmd.post_execute_hooks.clear()
+    try:
+        return [spmd.execute(q) for q in shapes]
+    finally:
+        spmd.post_execute_hooks.extend(hooks)
+
+
+def epoch_dicts(eng) -> List[dict]:
+    """An adaptive engine's epoch reports without the response time,
+    which the SPMD data plane measures."""
+    return [{k: v for k, v in dataclasses.asdict(ep).items()
+             if k != "response_time"} for ep in eng.epochs]
+
+
+def placement_digest(plan) -> str:
+    """SHA-256 of a plan's ``site_edge_ids``."""
+    import hashlib
+    h = hashlib.sha256()
+    for ids in plan.site_edge_ids():
+        h.update(np.int64(len(ids)).tobytes())
+        h.update(np.ascontiguousarray(ids, np.int64).tobytes())
+    return h.hexdigest()
 
 
 def repository_phase(plan, eng, card: str) -> None:
@@ -2741,13 +2799,13 @@ def online_phase(card: str, dev: str = "cuda") -> None:
         fail(f"online benches differ from the JAX package's: {runs}")
 
 
-def adaptive_phase(graph, plan, card: str, dev: str = "cuda"
-                   ) -> Dict[str, int]:
+def adaptive_phase(graph, plan, card: str, dev: str = "cuda"):
     """The online adaptive loop on the smoke's vertical plan (parts 1,
     3 and 4) and the JAX package's online benches (part 2).  Returns
-    the launches of the adaptive stream."""
+    the launches of the adaptive stream and the stream's record for the
+    distributed phase."""
     t0 = time.perf_counter()
-    eng, launches = adaptive_serve(graph, plan, card, dev)
+    eng, launches, record = adaptive_serve(graph, plan, card, dev)
     online_phase(card, dev)
     repository_phase(plan, eng, card)
     delta_phase(graph, eng, card, dev)
@@ -2755,7 +2813,7 @@ def adaptive_phase(graph, plan, card: str, dev: str = "cuda"
           flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, record
 
 
 # ----------------------------------------------------------------------
@@ -4108,7 +4166,7 @@ def train_phase(card: str, dev: str = "cuda") -> int:
 # ----------------------------------------------------------------------
 
 DIST_TIMEOUT_S = 300.0     # a collective waiting longer fails its group
-DIST_DEADLINE_S = 420.0    # every rank answers within this, or all end
+DIST_DEADLINE_S = 600.0    # every rank answers within this, or all end
 
 
 def answer_digest(result) -> str:
@@ -4151,11 +4209,14 @@ def _sync(dev: str) -> None:
         torch.cuda.synchronize()
 
 
-def distributed_rank(handoff_dir: str, query_edges, dev: str) -> dict:
+def distributed_rank(handoff_dir: str, query_edges, stream_edges,
+                     dev: str) -> dict:
     """One rank of the distributed phase: the graph and the plan loaded
     from the handoff, a ``SITES``-slot mesh over the whole group (rank r
     on ``cuda:r``), the queries served with ``execute`` on one session
-    and with ``execute_many`` (batches of 64) on a fresh one.  Before
+    and with ``execute_many`` (batches of 64) on a fresh one; then, on
+    the same group, the front door (``distributed_door``) and the
+    adaptive stream (``distributed_adaptive``), rank 0 leading.  Before
     the timed serve, ``spmd_match`` runs the three shape queries once
     at ``MATCH_CAPACITY`` on the session's shard (untimed and outside
     the session's counters), so that the group's communicator set-up
@@ -4222,30 +4283,269 @@ def distributed_rank(handoff_dir: str, query_edges, dev: str) -> dict:
                    "digests": [answer_digest(r) for r in many]}
     out["launches"] = dict(ops.LAUNCHES)
     out["collectives"] = dict(COLLECTIVES)
+    del many
+    # the door leads the execute_many session: its store is built and
+    # its capacity hints are warm, as the one-process door's are
+    t0 = time.perf_counter()
+    out["door"] = distributed_door(sess, plan, mesh, queries, dev)
+    del sess
+    out["door_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the star, chain and cycle: ``served_queries`` puts them last
+    out["adaptive"] = distributed_adaptive(
+        plan, mesh, [QueryGraph.make(e) for e in stream_edges],
+        queries[-3:], dev)
+    out["adaptive_s"] = time.perf_counter() - t0
     return out
 
 
+#: the load multiples of the distributed door's sweep: 1x alone, to
+#: keep the smoke within its time limit (4x and 16x run on one process)
+DIST_SWEEP = (1.0,)
+
+
+def _led(sess, mesh, body) -> dict:
+    """``body()`` inside ``sess.lead()`` on rank 0; the other ranks
+    follow.  Returns what rank 0's body returned, or the followed
+    calls."""
+    if mesh.rank == 0:
+        with sess.lead():
+            return body()
+    t0 = time.perf_counter()
+    calls = sess.follow()
+    return {"followed": len(calls),
+            "errors": [c.error for c in calls if c.error],
+            "follow_s": time.perf_counter() - t0}
+
+
+def _timed_swaps(engine, secs: List[float]) -> None:
+    """Time every ``swap_store`` of an SPMD engine into ``secs``."""
+    swap = engine.swap_store
+
+    def timed(*a, **kw):
+        _sync(str(engine.device))
+        t = time.perf_counter()
+        gen = swap(*a, **kw)
+        _sync(str(engine.device))
+        secs.append(time.perf_counter() - t)
+        return gen
+    engine.swap_store = timed
+
+
+def distributed_door(sess, plan, mesh, queries, dev: str) -> dict:
+    """The front door over ``sess``, which rank 0 leads: the queries
+    twice through ``Session.serve()``, a sequential pass (the base
+    rate), the capacity sweep at ``DIST_SWEEP`` multiples of it, and a
+    hot swap to the same placement through the door
+    (``Session.swap_store``) between two halves of the list; the
+    other ranks follow.  Every rank records each query its engine
+    answers (bytes), its counters, its store generation, its swap
+    seconds and its launches and collective calls over the part."""
+    from repro_torch.core.spmd import COLLECTIVES, reset_collectives
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import FrontDoor, FrontDoorConfig, measure_capacity
+    registry = MetricsRegistry()
+    sess.engine.set_metrics_registry(registry)
+    per_query: List[int] = []
+    sess.post_execute_hooks.append(
+        lambda q, r: per_query.append(int(r.stats.comm_bytes)))
+    swap_s: List[float] = []
+    _timed_swaps(sess.engine, swap_s)
+    sids = plan.site_edge_ids()
+    half = len(queries) // 2
+
+    def lead() -> dict:
+        out = {}
+        served_list = list(queries) * 2
+        t0 = time.perf_counter()
+        with sess.serve(max_batch=DOOR_BATCH,
+                        max_delay_ms=DOOR_DELAY_MS) as door:
+            futs = [door.submit(q, deadline_s=600.0) for q in served_list]
+            _settle(futs)
+        out["served_s"] = time.perf_counter() - t0
+        out["outcomes"] = [f.outcome for f in futs]
+        out["digests"] = [answer_digest(f.result(0)) for f in futs
+                          if f.outcome == "completed"]
+        out["batches"] = int(door.stats()["batches"])
+        out["latency"] = _pcts_ms(registry.histogram(
+            "repro_serve_latency_seconds", backend="serve"))
+        t0 = time.perf_counter()
+        for q in queries:
+            sess.execute(q)
+        base_qps = len(queries) / (time.perf_counter() - t0)
+        out["base_qps"] = base_qps
+        reports = measure_capacity(
+            lambda: FrontDoor(sess, FrontDoorConfig(
+                max_queue=SWEEP_QUEUE, max_batch=DOOR_BATCH,
+                max_delay_ms=DOOR_DELAY_MS)),
+            queries, base_qps, multipliers=DIST_SWEEP, duration_s=SWEEP_S,
+            seed=7, deadline_s=SWEEP_DEADLINE_S)
+        out["sweep"] = [(r.offered_multiplier, r.offered_qps,
+                         r.achieved_qps, r.p50_latency_s, r.p99_latency_s,
+                         r.shed_rate, r.failed) for r in reports]
+        with sess.serve(max_batch=DOOR_BATCH,
+                        max_delay_ms=DOOR_DELAY_MS) as door:
+            futs = [door.submit(q, deadline_s=600.0) for q in queries[:half]]
+            _settle(futs)
+            door.request_swap(lambda: sess.swap_store(
+                sids, replicated_props=set(plan.replicated_props)))
+            futs += [door.submit(q, deadline_s=600.0)
+                     for q in queries[half:]]
+            _settle(futs)
+        out["swap_outcomes"] = [f.outcome for f in futs]
+        out["swap_digests"] = [answer_digest(f.result(0)) for f in futs
+                               if f.outcome == "completed"]
+        out["swaps_applied"] = door.swaps_applied
+        return out
+
+    _sync(dev)
+    ops.reset_launches()
+    reset_collectives()
+    out = _led(sess, mesh, lead)
+    _sync(dev)
+    out.update(launches=dict(ops.LAUNCHES), collectives=dict(COLLECTIVES),
+               per_query=per_query, extra=dict(sess.stats().extra),
+               generation=sess.engine.store_generation, swap_s=swap_s)
+    return out
+
+
+def distributed_adaptive(plan, mesh, stream, shapes, dev: str) -> dict:
+    """The adaptive stream on the group: ``Session(plan,
+    backend="adaptive", mesh=...)`` on the SPMD data plane with
+    ``adaptive_serve``'s configuration; the shapes on the data plane
+    before and after it, every rank making the same calls (outside the
+    monitored stream, as ``adaptive_serve`` runs them); the stream
+    itself submitted once, by rank 0, which leads and runs the control
+    plane, while the other ranks follow.  Every rank records its
+    answers' digests and bytes per stream query, the shapes' digests,
+    its epoch reports, placement digest, counters, swap seconds,
+    launches (also at its first swap) and collective calls; rank 0
+    also the re-fragmentation seconds and its qps before and after the
+    first swap."""
+    from repro_torch.core import Session
+    from repro_torch.core.spmd import COLLECTIVES, reset_collectives
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.online import AdaptiveConfig
+    from repro_torch.online import loop as loop_module
+    sess = Session(plan, backend="adaptive", device=dev, mesh=mesh,
+                   adaptive_config=AdaptiveConfig(
+                       epoch_len=ADAPTIVE_EPOCH, serve_backend="spmd",
+                       migration_budget_bytes=ADAPTIVE_BUDGET),
+                   metrics_registry=MetricsRegistry())
+    eng = sess.engine
+    spmd = eng.engine
+    spmd.max_capacity = MAX_CAPACITY
+    answered: list = []       # digested after the stream, untimed
+    sess.post_execute_hooks.append(lambda q, r: answered.append(r))
+    swap_s: List[float] = []
+    _timed_swaps(spmd, swap_s)
+    at_swap: List[dict] = []
+    swap = spmd.swap_store
+
+    def counted_swap(*a, **kw):
+        at_swap.append(dict(ops.LAUNCHES))
+        return swap(*a, **kw)
+    spmd.swap_store = counted_swap
+    refragment = loop_module.refragment
+    refrag_s: List[float] = []
+
+    def timed_refragment(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return refragment(*a, **kw)
+        finally:
+            refrag_s.append(time.perf_counter() - t)
+
+    def lead() -> dict:
+        lat = {"before": [], "after": []}
+        for q in stream:
+            gen = spmd.store_generation
+            t = time.perf_counter()
+            sess.execute(q)
+            secs = time.perf_counter() - t
+            if spmd.store_generation == gen:
+                lat["after" if gen else "before"].append(secs)
+        return {"qps": {k: len(v) / sum(v) if v else 0.0
+                        for k, v in lat.items()}}
+
+    _sync(dev)
+    ops.reset_launches()
+    reset_collectives()
+    shape_digests = [answer_digest(r) for r in data_plane_shapes(spmd, shapes)]
+    t0 = time.perf_counter()
+    loop_module.refragment = timed_refragment
+    try:
+        out = _led(sess, mesh, lead)
+    finally:
+        loop_module.refragment = refragment
+    _sync(dev)
+    out["stream_s"] = time.perf_counter() - t0
+    shape_digests += [answer_digest(r)
+                      for r in data_plane_shapes(spmd, shapes)]
+    _sync(dev)
+    out.update(digests=[answer_digest(r) for r in answered],
+               per_query=[int(r.stats.comm_bytes) for r in answered],
+               shape_digests=shape_digests, epochs=epoch_dicts(eng),
+               placement=placement_digest(eng.plan),
+               extra=dict(sess.stats().extra),
+               inner_extra=dict(spmd.stats().extra),
+               generation=spmd.store_generation, swap_s=swap_s,
+               refragment_s=refrag_s, launches=dict(ops.LAUNCHES),
+               at_swap=at_swap[0] if at_swap else None,
+               collectives=dict(COLLECTIVES))
+    return out
+
+
+
+
+def _differ(got, want) -> list:
+    """Indices (lists) or keys (dicts) where ``got`` and ``want``
+    differ."""
+    if isinstance(got, dict):
+        return sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+    return [i for i, (a, b) in enumerate(zip(got, want)) if a != b] or \
+        [f"lengths {len(got)} and {len(want)}"]
+
+
+def _hold(r: int, what: str, got, want) -> None:
+    if got != want:
+        fail(f"distributed: rank {r}'s {what} differ at "
+             f"{_differ(got, want)[:10]}")
+
+
 def distributed_phase(card: str, handoff: dict, dev: str = "cuda"
-                      ) -> Dict[str, int]:
+                      ) -> Dict[str, Dict[str, int]]:
     """The served queries on ``torch.cuda.device_count()`` ranks of an
     NCCL group (a gloo group of one rank when ``dev`` is the CPU), each
     rank on its own card with its block of the ``SITES`` slots, through
     ``Session(plan, backend="spmd", mesh=...)``: every rank's answers,
     per-query bytes and counter deltas (``execute``) and per-query
     bytes (``execute_many``), and its counters after each serve, equal
-    the one-process session's; every join kernel launches on every
-    rank.  Returns rank 0's launches."""
+    the one-process session's.  Then, rank 0 leading: the front door
+    (every answer equal to the one-process serve's, every outcome
+    completed, every rank's per-query bytes and counters equal rank
+    0's, a capacity sweep, a hot swap raising the store generation on
+    every rank) and the adaptive stream (every rank's answers, bytes,
+    shape answers, epoch reports, placement and counters equal
+    ``adaptive_serve``'s).  Every join kernel launches on every rank on
+    each path.  Returns rank 0's launches per path (``distributed``,
+    ``distributed_door``, ``distributed_adaptive``)."""
     import shutil
 
     from repro_torch.launch.mesh import launch
     on_card = torch.device(dev).type == "cuda"
     world = torch.cuda.device_count() if on_card else 1
     backend = "nccl" if on_card else "gloo"
+    ad = handoff["adaptive"]
     t0 = time.perf_counter()
     try:
         outs = launch(distributed_rank, world, handoff["dir"],
                       backend=backend,
-                      args=(handoff["dir"], handoff["edges"], dev),
+                      args=(handoff["dir"], handoff["edges"], ad["stream"],
+                            dev),
                       timeout_s=DIST_TIMEOUT_S, deadline_s=DIST_DEADLINE_S)
     finally:
         shutil.rmtree(handoff["dir"], ignore_errors=True)
@@ -4267,19 +4567,53 @@ def distributed_phase(card: str, handoff: dict, dev: str = "cuda"
                 ("execute_many ledger", o["many"]["per_query"],
                  handoff["many"]["per_query"]),
                 ("execute_many counters", o["many"]["extra"],
-                 handoff["many"]["extra"])):
-            if got != want:
-                bad = ([i for i, (a, b) in enumerate(zip(got, want))
-                        if a != b] if isinstance(got, list) else
-                       sorted(k for k in set(got) | set(want)
-                              if got.get(k) != want.get(k)))
-                fail(f"distributed: rank {r}'s {what} differ from the "
-                     f"one-process session's at {bad[:10]}")
-        missing = [k for k in JOIN_KERNELS
-                   if on_card and (o["execute"]["launches"][k] <= 0
-                                   or o["launches"][k] <= 0)]
-        if missing:
-            fail(f"distributed: rank {r} never launched {missing}")
+                 handoff["many"]["extra"]),
+                ("door ledger", o["door"]["per_query"],
+                 outs[0]["door"]["per_query"]),
+                ("door counters", o["door"]["extra"],
+                 outs[0]["door"]["extra"]),
+                ("adaptive stream answers", o["adaptive"]["digests"],
+                 ad["digests"]),
+                ("adaptive stream ledger", o["adaptive"]["per_query"],
+                 ad["per_query"]),
+                ("adaptive shape answers", o["adaptive"]["shape_digests"],
+                 ad["shape_digests"]),
+                ("epoch reports", o["adaptive"]["epochs"], ad["epochs"]),
+                ("adaptive counters", o["adaptive"]["extra"], ad["extra"]),
+                ("adaptive data plane counters",
+                 o["adaptive"]["inner_extra"], ad["inner_extra"])):
+            _hold(r, what, got, want)
+        if o["adaptive"]["placement"] != ad["placement"]:
+            fail(f"distributed: rank {r}'s realized placement differs from "
+                 f"the one-process adaptive stream's")
+        if o["door"]["generation"] != 1 or o["adaptive"]["generation"] \
+                != int(ad["inner_extra"]["store_generation"]):
+            fail(f"distributed: rank {r}'s store generations "
+                 f"{o['door']['generation']} (door) and "
+                 f"{o['adaptive']['generation']} (adaptive)")
+        if r and (o["door"]["errors"] or o["adaptive"]["errors"]):
+            fail(f"distributed: rank {r} recorded errors "
+                 f"{o['door']['errors'] + o['adaptive']['errors']}")
+        for path, counts in (("execute", o["execute"]["launches"]),
+                             ("both serves", o["launches"]),
+                             ("door", o["door"]["launches"]),
+                             ("adaptive", o["adaptive"]["launches"])):
+            missing = [k for k in JOIN_KERNELS if on_card and counts[k] <= 0]
+            if missing:
+                fail(f"distributed: rank {r} never launched {missing} on "
+                     f"the {path} path")
+    lead = outs[0]["door"]
+    if set(lead["outcomes"] + lead["swap_outcomes"]) != {"completed"}:
+        fail(f"distributed door: outcomes "
+             f"{sorted(set(lead['outcomes'] + lead['swap_outcomes']))}")
+    _hold(0, "door answers", lead["digests"], handoff["digests"] * 2)
+    _hold(0, "door answers across the swap", lead["swap_digests"],
+          handoff["digests"])
+    if lead["swaps_applied"] != 1:
+        fail(f"distributed door: {lead['swaps_applied']} swaps applied")
+    for mult, offered, achieved, p50, p99, shed, failed in lead["sweep"]:
+        if failed:
+            fail(f"distributed door: {failed} failed requests at {mult:g}x")
     print(f"distributed ({card}): world {world}, backend {backend}, "
           f"{SITES} slots ({[o['slots'] for o in outs]}), {n} queries; "
           f"execute qps="
@@ -4295,7 +4629,54 @@ def distributed_phase(card: str, handoff: dict, dev: str = "cuda"
           f"{[{k: o['launches'][k] for k in JOIN_KERNELS} for o in outs]}; "
           f"answers, per-query ledger and counters of every rank equal the "
           f"one-process session's", flush=True)
-    return {k: outs[0]["launches"][k] for k in JOIN_KERNELS}
+    def joins(counts) -> dict:
+        return counts and {k: counts[k] for k in JOIN_KERNELS}
+    print(f"distributed door ({card}): rank 0 leads, {world - 1} "
+          f"following; {2 * n} requests in {lead['served_s']:.2f} s, served "
+          f"qps={2 * n / lead['served_s']:.3f} in {lead['batches']} "
+          f"batches, serve latency {lead['latency']}; answers equal the "
+          f"one-process serve's, every outcome completed; base rate "
+          f"{lead['base_qps']:.3f} qps; hot swap to the same placement "
+          f"through the door: store generation "
+          f"{[o['door']['generation'] for o in outs]}, swap s per rank "
+          f"{[[round(x, 2) for x in o['door']['swap_s']] for o in outs]}; "
+          f"part {outs[0]['door_s']:.1f} s; collective calls per rank "
+          f"{[o['door']['collectives'] for o in outs]}; join kernel "
+          f"launches per rank "
+          f"{[joins(o['door']['launches']) for o in outs]}"
+          f"; per-query bytes and counters of every rank equal rank 0's",
+          flush=True)
+    for mult, offered, achieved, p50, p99, shed, failed in lead["sweep"]:
+        print(f"distributed load {mult:g}x ({card}): offered {offered:.3f} "
+              f"qps, achieved {achieved:.3f} qps, p50={p50 * 1e3:.2f} ms "
+              f"p99={p99 * 1e3:.2f} ms, shed_rate={shed:.4f}, "
+              f"failed={failed}", flush=True)
+    lad = outs[0]["adaptive"]
+    print(f"distributed adaptive ({card}): rank 0 leads and runs the "
+          f"control plane, {world - 1} following; {len(ad['stream'])} "
+          f"queries in {lad['stream_s']:.1f} s; re-fragmentation on rank 0 "
+          f"{[round(x, 1) for x in lad['refragment_s']]} s (one process "
+          f"{[round(x, 1) for x in ad['refragment_s']]}); swap s per rank "
+          f"{[[round(x, 2) for x in o['adaptive']['swap_s']] for o in outs]}"
+          f" (one process {[round(x, 2) for x in ad['swap_s']]}); qps "
+          f"before the swap {lad['qps']['before']:.3f} (one process "
+          f"{ad['qps']['before']:.3f}), after {lad['qps']['after']:.3f} "
+          f"(one process {ad['qps']['after']:.3f}); "
+          f"{len(lad['epochs'])} epochs, "
+          f"{int(lad['extra']['repartitions'])} re-partitions; part "
+          f"{outs[0]['adaptive_s']:.1f} s; collective calls per rank "
+          f"{[o['adaptive']['collectives'] for o in outs]}; join kernel "
+          f"launches per rank "
+          f"{[joins(o['adaptive']['launches']) for o in outs]} (at the "
+          f"first swap {[joins(o['adaptive']['at_swap']) for o in outs]}"
+          f"); answers, bytes, shape answers, epoch reports, placement and "
+          f"counters of every rank equal the one-process stream's",
+          flush=True)
+    return {"distributed": {k: outs[0]["launches"][k] for k in JOIN_KERNELS},
+            "distributed_door": {k: lead["launches"][k]
+                                 for k in JOIN_KERNELS},
+            "distributed_adaptive": {k: lad["launches"][k]
+                                     for k in JOIN_KERNELS}}
 
 
 def rdf_setup():
@@ -4335,8 +4716,17 @@ def spmd_phase(card: str):
     (``adaptive``) and on each strategy's serve; and the handoff of the
     distributed phase (``distributed_handoff``)."""
     from repro_torch.core import Session
+    clock = [time.perf_counter()]
+
+    def phase_seconds(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase seconds: {name} {now - clock[0]:.1f}", flush=True)
+        clock[0] = now
+
     graph, design, plan, session = rdf_setup()
+    phase_seconds("rdf setup")
     kernels = kernel_phase(session.engine.store)
+    phase_seconds("kernels")
     queries = served_queries(graph)
     plain = Session(plan, backend="spmd", spmd_max_capacity=MAX_CAPACITY)
     torch.cuda.reset_peak_memory_stats()
@@ -4356,22 +4746,27 @@ def spmd_phase(card: str):
         fail(f"kernels never launched on the execute_many serve: {missing}")
     handoff = distributed_handoff(graph, plan, queries, results, ledger,
                                   many_ledger)
+    phase_seconds("serve")
     matcher = matcher_phase(graph, session.engine.store, queries[SERVED:],
                             [answer_rows(r.bindings)
                              for r in results[SERVED:]], card)
     lost = site_loss_phase(graph, plan, queries, results, session, card)
+    phase_seconds("matcher and site loss")
     served = door_phase(plan, queries, results, session, card)
     missing = [k for k, (_s, _t, path) in KERNELS.items()
                if path == "spmd" and served[k] <= 0]
     if missing:
         fail(f"kernels never launched on the front-door serve: {missing}")
+    phase_seconds("front door")
     del session
     torch.cuda.empty_cache()
-    adaptive = adaptive_phase(graph, plan, card)
+    adaptive, handoff["adaptive"] = adaptive_phase(graph, plan, card)
     del plan
     torch.cuda.empty_cache()
+    phase_seconds("adaptive")
     strategies = strategies_phase(graph, design, queries, results, card)
     ledger_phase(card)
+    phase_seconds("strategies and ledger")
     for k in kernels:
         kernels[k]["launches"] = launches[k]
         if KERNELS[k][2] == "spmd":
@@ -4447,9 +4842,9 @@ def main() -> None:
     kernels, handoff = spmd_phase(card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dist_launches = distributed_phase(card, handoff)
-    for k, n in dist_launches.items():
-        kernels[k]["paths"]["distributed"] = n
+    for path, counts in distributed_phase(card, handoff).items():
+        for k, n in counts.items():
+            kernels[k]["paths"][path] = n
     print(f"phase seconds: distributed {time.perf_counter() - t0:.1f}",
           flush=True)
     t0 = time.perf_counter()

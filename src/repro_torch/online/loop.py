@@ -24,6 +24,19 @@ The control plane itself (monitor, drift, re-fragmentation, migration
 planning) is numpy on the host, as in the JAX package, so the same
 stream gives the same epochs, plans and ledger.
 
+With ``mesh=`` a ``SiteMesh`` of a process group (SPMD data plane only)
+every rank serves its block of the sites and every rank closes each
+epoch at the same query, but the control plane runs on rank 0 alone:
+the monitor observes there, and there the drift check, re-fragmentation
+and migration plan run.  Rank 0 then broadcasts the epoch's outcome
+once on the group -- the drift report and the ledger, and after a
+re-partition the new fragmentation, realized allocation, patterns,
+replicated properties and data dictionary -- and every rank installs it
+and swaps its own shard.  So every rank ends with the same epoch
+reports, plan and counters.  A direct ``end_epoch()`` on a leading
+session's rank 0 is announced to the followers first
+(``core/group.py``).
+
 Every epoch is accounted: shipped query bytes, response time, migrated
 bytes, migration makespan -- the before/after communication-cost ledger
 the adaptive-vs-static benchmark reads.
@@ -41,6 +54,7 @@ from ..core.engine import EngineBase
 from ..core.executor import CostModel, DistributedEngine, QueryResult
 from ..core.fragmentation import Fragmentation
 from ..core.graph import RDFGraph
+from ..core.group import broadcast_from_leader
 from ..core.plan import PartitionConfig, PartitionPlan
 from ..core.query import QueryGraph
 from ..device import resolve_device
@@ -126,11 +140,14 @@ class AdaptiveEngine(EngineBase):
     def __init__(self, plan,
                  config: Optional[AdaptiveConfig] = None,
                  cost: Optional[CostModel] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh=None):
         """``device`` is where the SPMD data plane's store lives and its
         joins run ("cuda" by default, raising without CUDA; "cpu" runs
         the kernels' plain versions); the local data plane computes on
-        the host but keeps the same rule."""
+        the host but keeps the same rule.  ``mesh`` (a ``SiteMesh``)
+        folds the SPMD data plane's sites onto its slots; on a process
+        group, rank 0 runs the control plane for every rank."""
         self._init_engine_base()
         plan = getattr(plan, "plan", plan)   # legacy WorkloadPartitioner
         if plan is None:
@@ -164,8 +181,17 @@ class AdaptiveEngine(EngineBase):
         # it is kept current so the adapted placement can be served by
         # an SPMD rebuild -- the ROADMAP's adaptive-SPMD open item.
         self.replicated_props: Set[int] = set(plan.replicated_props)
+        if mesh is not None and self.cfg.serve_backend != "spmd":
+            raise ValueError("a mesh serves the spmd data plane: use "
+                             "AdaptiveConfig(serve_backend=\"spmd\")")
+        self.mesh = mesh
+        # rank 0 of a process group, or no group: this engine decides
+        self.controls = mesh is None or mesh.group is None or mesh.rank == 0
+        # set by a leading Session: announces a direct end_epoch()
+        self.lead_hook = None
         if self.cfg.serve_backend == "spmd":
-            self.engine = plan.build_spmd_engine(device=device, cost=cost)
+            self.engine = plan.build_spmd_engine(device=device, cost=cost,
+                                                 mesh=mesh)
         else:
             resolve_device(device)   # the host engine keeps the rule too
             self.engine = plan.build_local_engine(cost)
@@ -197,10 +223,12 @@ class AdaptiveEngine(EngineBase):
     # ------------------------------------------------------------------
     def _install_hook(self) -> None:
         # feed the per-site heat gauges from each result's touched
-        # sites (routed SPMD execution reports only the route members)
-        self.engine.post_execute_hooks.append(
-            lambda q, r: self.monitor.observe(
-                q, sites=getattr(r.stats, "sites_touched", None)))
+        # sites (routed SPMD execution reports only the route members);
+        # only the rank that runs the control plane observes
+        if self.controls:
+            self.engine.post_execute_hooks.append(
+                lambda q, r: self.monitor.observe(
+                    q, sites=getattr(r.stats, "sites_touched", None)))
         # keep the wrapped engine on this engine's telemetry streams
         # (fresh inner engines are built at every re-partition)
         self.engine.set_tracer(self.tracer)
@@ -233,6 +261,15 @@ class AdaptiveEngine(EngineBase):
         """Logical cluster width (constant across re-partitions)."""
         return self.pcfg.num_sites
 
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The SPMD data plane's device (``None`` on the host one)."""
+        return getattr(self.engine, "device", None)
+
+    @property
+    def _on_group(self) -> bool:
+        return self.mesh is not None and self.mesh.group is not None
+
     # ------------------------------------------------------------------
     def _execute(self, query: QueryGraph) -> QueryResult:
         """Answer one query on the current fragmentation, feed the
@@ -251,7 +288,7 @@ class AdaptiveEngine(EngineBase):
         self._epoch_rt += r.stats.response_time
         self.total_comm_bytes += r.stats.comm_bytes
         if self._epoch_queries >= self.cfg.epoch_len:
-            self.end_epoch()
+            self._close_epoch()
         return self._finish(query, r)
 
     def _stats_extra(self):
@@ -266,33 +303,65 @@ class AdaptiveEngine(EngineBase):
         """Close the current epoch (callable early, e.g. from a
         scheduler): compare the live workload distribution against the
         design reference and, if drift fired and the cooldown passed,
-        re-mine/re-select/migrate within budget.
+        re-mine/re-select/migrate within budget.  On a leading
+        session's rank 0 the call is announced to the followers first.
 
         Returns:
             The ``EpochReport`` appended to ``self.epochs``.
         """
-        drift: Optional[DriftReport] = None
-        repartitioned = False
-        moved = 0
-        deferred = 0
-        makespan = 0.0
-        replica_ships = 0
-        replica_bytes = 0
+        if self.lead_hook is not None:
+            return self.lead_hook("end_epoch", None, self._close_epoch)
+        return self._close_epoch()
+
+    def _decide(self) -> dict:
+        """The control plane's decision for the closing epoch: the drift
+        check and, if it fired, the re-partition (installed here)."""
+        out = {"drift": None, "change": None, "moved": 0, "deferred": 0,
+               "replica_ships": 0, "replica_bytes": 0, "makespan": 0.0}
         if self._cooldown > 0:
             self._cooldown -= 1
         else:
-            drift = self.detector.check(self.monitor)
-            if drift.fired:
+            out["drift"] = self.detector.check(self.monitor)
+            if out["drift"].fired:
                 plan = self._repartition()
-                repartitioned = True
-                moved = plan.moved_bytes
-                deferred = len(plan.deferred)
-                replica_ships = len(plan.replica_ships)
-                replica_bytes = plan.replica_bytes
-                makespan = schedule_migration(
-                    plan, self.pcfg.num_sites,
-                    self.cfg.link_bytes_per_sec)
+                out.update(change=self._change, moved=plan.moved_bytes,
+                           deferred=len(plan.deferred),
+                           replica_ships=len(plan.replica_ships),
+                           replica_bytes=plan.replica_bytes,
+                           makespan=schedule_migration(
+                               plan, self.pcfg.num_sites,
+                               self.cfg.link_bytes_per_sec))
                 self._cooldown = self.cfg.cooldown_epochs
+        out["cooldown"] = self._cooldown
+        out["response_time"] = self._epoch_rt
+        return out
+
+    def _close_epoch(self) -> EpochReport:
+        if not self._on_group:
+            d = self._decide()
+        elif self.controls:
+            try:
+                d = self._decide()
+            except BaseException as exc:
+                # the followers wait for this epoch's outcome: end them
+                # too, then end this rank
+                broadcast_from_leader(
+                    {"failed": f"{type(exc).__name__}: {exc}"}, self.mesh)
+                raise
+            broadcast_from_leader(d, self.mesh)
+        else:
+            d = broadcast_from_leader(None, self.mesh)
+            if "failed" in d:
+                raise RuntimeError(f"rank 0's control plane failed at "
+                                   f"epoch {self.epoch}: {d['failed']}")
+            if d["change"] is not None:
+                self._install(d["change"])
+            self._cooldown = d["cooldown"]
+            # the epoch's response time as rank 0 measured it, so that
+            # every rank's report is the same
+            self._epoch_rt = d["response_time"]
+        drift, repartitioned = d["drift"], d["change"] is not None
+        moved, deferred, makespan = d["moved"], d["deferred"], d["makespan"]
         report = EpochReport(self.epoch, self._epoch_queries,
                              self._epoch_comm, self._epoch_rt, drift,
                              repartitioned, moved, deferred, makespan)
@@ -307,8 +376,8 @@ class AdaptiveEngine(EngineBase):
         self._epoch_gauge("repartitioned", 1.0 if repartitioned else 0.0)
         self._epoch_gauge("moved_bytes", float(moved))
         self._epoch_gauge("deferred_moves", float(deferred))
-        self._epoch_gauge("replica_ships", float(replica_ships))
-        self._epoch_gauge("replica_bytes", float(replica_bytes))
+        self._epoch_gauge("replica_ships", float(d["replica_ships"]))
+        self._epoch_gauge("replica_bytes", float(d["replica_bytes"]))
         self._epoch_gauge("migration_makespan_seconds", makespan)
         if drift is not None:
             for k, v in drift.to_metrics().items():
@@ -321,6 +390,9 @@ class AdaptiveEngine(EngineBase):
 
     # ------------------------------------------------------------------
     def _repartition(self) -> MigrationPlan:
+        """Re-fragment on the monitor's snapshot, plan the migration
+        within budget and install the realized placement; the installed
+        change is kept in ``self._change`` for the other ranks."""
         res: RefragmentResult = refragment(
             self.graph, self.monitor, self.pcfg, self.selected_patterns,
             replica_bytes_per_edge=self.cfg.bytes_per_edge)
@@ -332,13 +404,30 @@ class AdaptiveEngine(EngineBase):
                               old_replicated=self.replicated_props,
                               desired_replication=res.desired_replication)
         realized = Allocation(plan.final_site_of, self.pcfg.num_sites)
-        dictionary = DataDictionary.build(self.graph, res.frag, realized,
-                                          self.pcfg.num_sites)
-        self.frag = res.frag
+        self._change = {
+            "frag": res.frag, "site_of": realized.site_of,
+            "dictionary": DataDictionary.build(
+                self.graph, res.frag, realized, self.pcfg.num_sites),
+            "selected_patterns": res.selected_patterns,
+            "cold_props": res.cold_props,
+            "replicated_props": set(plan.replicated_props),
+            "sel_usage": res.sel_usage, "weights": res.weights,
+            "replication": res.desired_replication,
+            "moved_bytes": plan.moved_bytes,
+            "replica_bytes": plan.replica_bytes}
+        self._install(self._change)
+        self.detector.set_reference(self.monitor, self.selected_patterns)
+        return plan
+
+    def _install(self, change: dict) -> None:
+        """Adopt a re-partition's realized placement (every rank of a
+        group runs this with rank 0's ``change``)."""
+        realized = Allocation(change["site_of"], self.pcfg.num_sites)
+        self.frag = change["frag"]
         self.alloc = realized
-        self.selected_patterns = res.selected_patterns
-        self.cold_props = res.cold_props
-        self.replicated_props = set(plan.replicated_props)
+        self.selected_patterns = change["selected_patterns"]
+        self.cold_props = change["cold_props"]
+        self.replicated_props = set(change["replicated_props"])
         # refresh the plan *artifact* to the realized placement: the
         # lifecycle layer publishes successive versions of it, and both
         # data planes derive their storage view from its
@@ -347,27 +436,27 @@ class AdaptiveEngine(EngineBase):
         # designed from; the live distribution lives in the monitor).
         self.plan = PartitionPlan(
             strategy=self.pcfg.kind, config=self.pcfg, graph=self.graph,
-            selected_patterns=res.selected_patterns, frag=res.frag,
-            alloc=realized, dictionary=dictionary,
-            cold_props=res.cold_props,
+            selected_patterns=change["selected_patterns"],
+            frag=change["frag"], alloc=realized,
+            dictionary=change["dictionary"],
+            cold_props=change["cold_props"],
             design_workload=self.plan.design_workload,
-            sel_usage=res.sel_usage, weights=res.weights,
-            replicated_props=set(plan.replicated_props),
-            replication=res.desired_replication)
+            sel_usage=change["sel_usage"], weights=change["weights"],
+            replicated_props=set(change["replicated_props"]),
+            replication=change["replication"])
         if self.cfg.serve_backend == "spmd":
             # hot swap: same engine object (matchers, telemetry
             # streams, and the monitor hook survive -- re-installing the
             # hook here would double-observe every query), new folded
-            # store for the realized placement
+            # store for the realized placement (on a mesh, this rank's
+            # shard)
             self.engine.swap_store(self.plan.site_edge_ids(),
                                    replicated_props=self.replicated_props)
         else:
-            self.engine = DistributedEngine(self.graph, res.frag, realized,
-                                            dictionary, res.cold_props,
-                                            self.cost)
+            self.engine = DistributedEngine(
+                self.graph, change["frag"], realized, change["dictionary"],
+                change["cold_props"], self.cost)
             self._install_hook()
-        self.detector.set_reference(self.monitor, self.selected_patterns)
-        self.total_moved_bytes += plan.moved_bytes
-        self.total_replica_bytes += plan.replica_bytes
+        self.total_moved_bytes += change["moved_bytes"]
+        self.total_replica_bytes += change["replica_bytes"]
         self.num_repartitions += 1
-        return plan

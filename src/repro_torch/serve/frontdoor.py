@@ -38,9 +38,16 @@ thread-safe.  Tests drive the same state machine without threads:
 construct with ``start=False`` and an injectable fake ``clock``, then
 call ``pump()`` / ``drain()`` manually.
 
-On the card the dispatcher thread launches the engine's kernels on its
-own current CUDA stream, which is the default stream unless the caller
-set one inside the engine call.  The kernel libraries build and load at
+On the card the dispatcher thread first makes the engine's card its
+current device (``torch.cuda.current_device()`` is per thread: a rank
+whose shard lives on ``cuda:2`` must allocate there), then launches the
+engine's kernels on its own current CUDA stream, which is the default
+stream unless the caller set one inside the engine call.  Over a
+``Session`` that leads a process group (``Session.lead()``) every
+engine call the door makes is announced to the other ranks from this
+thread; a swap must then be a call of the session's
+(``request_swap(lambda: session.swap_store(...))``), whose arguments
+can be announced.  The kernel libraries build and load at
 first use, so warm the engine with direct ``execute`` calls before the
 door starts; and read the kernels' launch counters only after
 ``close()``, since the dispatcher bumps them.  The door only calls the
@@ -54,6 +61,8 @@ import threading
 import warnings
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional
+
+import torch
 
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
@@ -608,6 +617,11 @@ class FrontDoor:
         return self
 
     def _run(self) -> None:
+        dev = getattr(self.engine, "device", None)
+        # a numbered card (a rank's); a bare "cuda" is the current one
+        if isinstance(dev, torch.device) and dev.type == "cuda" \
+                and dev.index is not None:
+            torch.cuda.set_device(dev)
         while True:
             with self._cond:
                 if self._stopping:

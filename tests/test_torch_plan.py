@@ -134,6 +134,44 @@ def test_store_matches_reference_store():
         np.testing.assert_array_equal(getattr(ts, f), getattr(js, f))
 
 
+def test_store_row_order_is_the_lexsort():
+    """The store's packed-key sort orders rows as ``np.lexsort`` does,
+    ties (a site holding an edge twice) in input order, up to the
+    largest ids a graph admits."""
+    from repro_torch.constants import MAX_PROPERTY_ID, MAX_VERTEX_ID
+    from repro_torch.core.spmd import _row_order
+    rng = np.random.default_rng(5)
+    for hi_p, hi_v in ((7, 50), (MAX_PROPERTY_ID, MAX_VERTEX_ID)):
+        p = rng.integers(0, hi_p + 1, 4000).astype(np.int32)
+        s = rng.integers(0, hi_v + 1, 4000).astype(np.int32)
+        o = rng.integers(0, hi_v + 1, 4000).astype(np.int32)
+        p[:3], s[:3], o[:3] = hi_p, hi_v, hi_v
+        dup = rng.integers(0, 4000, 1000)
+        p, s, o = (np.concatenate([c, c[dup]]) for c in (p, s, o))
+        np.testing.assert_array_equal(_row_order(p, s, o),
+                                      np.lexsort((o, s, p)))
+        np.testing.assert_array_equal(_row_order(p, o, s),
+                                      np.lexsort((s, o, p)))
+
+
+def test_match_edge_ids_matches_reference(watdiv_small):
+    """The vertical fragments' edge sets: every WatDiv template, with
+    constants and with a property variable, as the JAX package finds
+    them."""
+    from repro.core.matching import match_edge_ids as j_edge_ids
+    from repro_torch.core.matching import match_edge_ids as t_edge_ids
+    tg = _port_graph(watdiv_small)
+    pats = list(J.watdiv_templates())
+    pats += [J.QueryGraph.make([(-1, 27, pats[0].edges[0].prop)]),
+             J.QueryGraph.make([(-1, -2, -1), (-2, -3, pats[1].edges[0].prop)])]
+    for q in pats:
+        want = j_edge_ids(watdiv_small, q)
+        got = t_edge_ids(tg, T.QueryGraph.make(
+            [(e.src, e.dst, e.prop) for e in q.edges]))
+        np.testing.assert_array_equal(got, want)
+    assert len(want)
+
+
 def test_graph_rejects_ids_past_the_bound():
     from repro_torch.constants import MAX_VERTEX_ID
     with pytest.raises(ValueError):

@@ -13,7 +13,9 @@
   the same two halves of a stream; the answers, the ledger and every
   engine counter equal the JAX engine's, and the answers equal
   ``match_pattern``'s.
-* The CLI: ``python -m repro_torch.serve --smoke --device cpu`` exits 0.
+* The CLI: ``python -m repro_torch.serve --smoke --device cpu`` exits 0,
+  in one process and on two gloo ranks (``--world 2``: rank 0 leads,
+  rank 1 follows).
 """
 import os
 import subprocess
@@ -174,7 +176,7 @@ def test_session_serve_knobs(tplan):
     assert door.engine is sess and door._thread is None
 
 
-def test_cli_smoke_on_the_cpu(tmp_path):
+def _cli_smoke(tmp_path, *extra):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
@@ -183,8 +185,21 @@ def test_cli_smoke_on_the_cpu(tmp_path):
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.serve", "--smoke", "--device",
          "cpu", "--triples", "3000", "--duration", "0.2", "--out",
-         str(out)], cwd=tmp_path, env=env, capture_output=True, text=True,
-        timeout=300)
+         str(out), *extra], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     assert "smoke OK" in run.stderr
     assert out.exists()
+    return run.stderr
+
+
+def test_cli_smoke_on_the_cpu(tmp_path):
+    _cli_smoke(tmp_path)
+
+
+def test_cli_smoke_on_a_group(tmp_path):
+    """``--world 2``: two gloo ranks, each serving 2 of the 4 sites;
+    rank 0 runs the gates, rank 1 follows every engine call."""
+    err = _cli_smoke(tmp_path, "--world", "2")
+    assert "2 ranks, 4 slots" in err
+    assert "rank 1: followed" in err and "exit codes [0, 0]" in err

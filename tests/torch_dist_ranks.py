@@ -1,25 +1,32 @@
 """Rank bodies of the port's process-group tests
-(``tests/test_torch_distributed.py``), run by
-``repro_torch.launch.mesh.launch`` on gloo ranks on the CPU.
+(``tests/test_torch_distributed.py``: every rank makes the same calls;
+``tests/test_torch_group_serve.py``: rank 0 leads, the others follow),
+run by ``repro_torch.launch.mesh.launch`` on gloo ranks on the CPU.
 
 The ranks are spawned processes that import this module, so it imports
 torch, numpy and ``repro_torch`` only: never JAX, the JAX package or a
 test module.  Every body returns plain picklable values (answer rows as
 sorted tuples, ledgers as ints), for the parent to hold against the JAX
 engine and the one-process port engine."""
+import dataclasses
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import convert
-from repro_torch.core import QueryGraph, RDFGraph
+from repro_torch.core import PartitionPlan, QueryGraph, RDFGraph, Session
 from repro_torch.core.spmd import (COLLECTIVES, SiteStore, SpmdEngine,
                                    make_spmd_matcher, reset_collectives,
                                    spmd_match)
 from repro_torch.distributed import ElasticMeshManager
 from repro_torch.launch.mesh import SiteMesh, make_host_mesh
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.online import AdaptiveConfig
+from repro_torch.serve import FrontDoor, FrontDoorConfig
+from repro_torch.serve import batcher as batcher_module
 
 
 def _mesh(slots):
@@ -157,3 +164,247 @@ def stalled_rank():
     if dist.get_rank() == 1:
         time.sleep(600)
     return "answered"
+
+
+# ----------------------------------------------------------------------
+# Rank 0 leads, the other ranks follow (tests/test_torch_group_serve.py)
+# ----------------------------------------------------------------------
+
+DOOR_BATCH = 4           # the doors' max_batch
+POISON_CAPACITY = (512, 1024)    # the poison part's (start, max) tiers
+
+
+def edges_of(q):
+    return tuple((int(e.src), int(e.dst), int(e.prop)) for e in q.edges)
+
+
+def engine_log(sess):
+    """Every query the session's engine answers, in the engine's order
+    (the same on every rank of a group): edges, answer, bytes."""
+    log = []
+    sess.post_execute_hooks.append(lambda q, r: log.append(
+        (edges_of(q), answer(r), int(r.stats.comm_bytes))))
+    return log
+
+
+def led(sess, body):
+    """``body(sess)`` inside ``sess.lead()`` on rank 0 of the session's
+    group, or on a session without one; the calls followed elsewhere."""
+    mesh = sess.mesh
+    if mesh is None or mesh.group is None or mesh.rank == 0:
+        if mesh is None or mesh.group is None:
+            return body(sess)
+        with sess.lead():
+            return body(sess)
+    return {"followed": [(f.call, f.error)
+                         for f in sess.follow()]}
+
+
+def _settled(futs):
+    out = []
+    for f in futs:
+        try:
+            out.append(("completed", answer(f.result(timeout=120.0))))
+        except Exception as exc:            # the outcome is compared
+            out.append((f.outcome, type(exc).__name__))
+    return out
+
+
+def door_manual(queries, reps=2):
+    """The queries ``reps`` times through a manual-pump door, drained
+    at once: buckets of ``DOOR_BATCH``, then the rest."""
+    def body(sess):
+        qs = list(queries) * reps
+        door = sess.serve(max_batch=DOOR_BATCH, max_delay_ms=1e7,
+                          max_queue=len(qs) + 1)
+        futs = [door.submit(q, deadline_s=300.0) for q in qs]
+        door.close(drain=True)
+        return {"futures": _settled(futs), "door": door.stats()}
+    return body
+
+
+def door_threaded(queries):
+    """The queries through a door with its dispatcher thread."""
+    def body(sess):
+        with sess.serve(max_batch=DOOR_BATCH, max_delay_ms=2.0) as door:
+            futs = [door.submit(q, deadline_s=300.0) for q in queries]
+            out = _settled(futs)
+        return {"futures": out, "door": door.stats()}
+    return body
+
+
+def door_poison(mates, poison, later):
+    """``mates`` and ``poison`` in one bucket of a door keyed by edge
+    count (so that one bucket holds several shapes), drained; then
+    ``later`` alone."""
+    def body(sess):
+        door = sess.serve(max_batch=len(mates) + 2, max_delay_ms=1e7,
+                          max_queue=64)
+        door.batcher.route_key = None
+        with mock.patch.object(batcher_module, "shape_key",
+                               lambda q: len(q.edges)):
+            futs = [door.submit(q, deadline_s=300.0)
+                    for q in mates[:1] + [poison] + mates[1:]]
+            door.drain()
+            futs.append(door.submit(later, deadline_s=300.0))
+            door.close(drain=True)
+        return {"futures": _settled(futs), "door": door.stats()}
+    return body
+
+
+def door_swap(queries, replicated):
+    """``tests/test_torch_serve.py``'s manual serve and hot swap, the
+    swap through ``Session.swap_store`` (announced by its arguments)."""
+    def body(sess):
+        out = {}
+        qs = list(queries) * 2
+        door = sess.serve(max_batch=len(qs) + 1, max_delay_ms=10_000.0,
+                          max_queue=len(qs) + 1)
+        out["route_keyed"] = door.batcher.route_key is not None
+        futs = [door.submit(q, deadline_s=300.0) for q in qs]
+        door.close(drain=True)
+        out["routed"] = [answer(f.result(timeout=5.0)) for f in futs]
+        out["buckets"] = len({(batcher_module.shape_key(q),
+                               sess.route_key(q)) for q in qs})
+        out["shapes"] = len({batcher_module.shape_key(q) for q in qs})
+        out["hits"] = sess.stats().extra["batch_shape_hits"]
+        sids = sess.plan.site_edge_ids()
+        door = FrontDoor(sess, FrontDoorConfig(max_queue=64, max_batch=4),
+                         start=False, registry=MetricsRegistry())
+        half = len(queries) // 2
+        futs = [door.submit(q) for q in queries[:half]]
+        door.drain()
+        door.request_swap(lambda: sess.swap_store(
+            sids[1:] + sids[:1], replicated_props=set(replicated)))
+        out["gen_queued"] = sess.engine.store_generation
+        futs += [door.submit(q) for q in queries[half:]]
+        door.drain()
+        out["outcomes"] = [f.outcome for f in futs]
+        res = [f.result(0) for f in futs]
+        out["swap_answers"] = [answer(r) for r in res]
+        out["swap_comm"] = [int(r.stats.comm_bytes) for r in res]
+        out["swaps_applied"] = door.swaps_applied
+        out["door"] = {k: door.stats()[k] for k in ("failed",
+                                                    "batch_fallbacks",
+                                                    "completed")}
+        return out
+    return body
+
+
+def adaptive_stream(stream, early):
+    """The stream through the adaptive session, with a direct
+    ``end_epoch()`` after its first ``early`` queries."""
+    def body(sess):
+        for i, q in enumerate(stream):
+            if i == early:
+                sess.end_epoch()
+            sess.execute(q)
+        return {"streamed": len(stream)}
+    return body
+
+
+def session_record(sess, log, out):
+    """What every rank reports of a session after a part: its engine
+    log, its counters and, for the adaptive backend, its epochs and
+    realized placement."""
+    st = sess.stats()
+    rec = {"out": out, "log": log, "extra": dict(st.extra),
+           "comm_bytes": int(st.comm_bytes),
+           "store_generation": None}
+    eng = sess.engine
+    if sess.backend == "adaptive":
+        rec["epochs"] = [dataclasses.asdict(e) for e in eng.epochs]
+        rec["site_edge_ids"] = [a.tolist() for a in eng.plan.site_edge_ids()]
+        rec["inner_extra"] = dict(eng.engine.stats().extra)
+        rec["store_generation"] = eng.engine.store_generation
+        rec["totals"] = (eng.total_comm_bytes, eng.total_moved_bytes,
+                         eng.num_repartitions)
+    else:
+        rec["store_generation"] = eng.store_generation
+    return rec
+
+
+def run_part(part, spec, mesh, dev="cpu"):
+    """One part of ``group_serve_rank`` on ``mesh`` (or, with ``mesh``
+    None, in one process): its session, its body led or followed, the
+    record."""
+    kind, args = spec
+    if kind == "adaptive":
+        plan_dir, cols, stream_edges, early, cfg = args
+        plan = PartitionPlan.load(plan_dir, RDFGraph(*cols))
+        sess = Session(plan, backend="adaptive", device=dev, mesh=mesh,
+                       adaptive_config=AdaptiveConfig(**cfg),
+                       metrics_registry=MetricsRegistry())
+        body = adaptive_stream([QueryGraph.make(e) for e in stream_edges],
+                               early)
+    else:
+        state, query_edges, kw = args
+        sess = Session(convert.plan_from_state_arrays(state),
+                       backend="spmd", device=dev, mesh=mesh,
+                       metrics_registry=MetricsRegistry(), **kw)
+        qs = [QueryGraph.make(e) for e in query_edges]
+        if kind == "door":
+            body = door_manual(qs)
+        elif kind == "threaded":
+            body = door_threaded(qs)
+        elif kind == "poison":
+            body = door_poison(qs[:-2], qs[-2], qs[-1])
+        else:
+            body = door_swap(qs, sess.plan.replicated_props)
+    log = engine_log(sess)
+    reset_collectives()
+    out = led(sess, body)
+    rec = session_record(sess, log, out)
+    rec["collectives"] = dict(COLLECTIVES)
+    return rec
+
+
+def group_serve_rank(parts):
+    """Every part of ``parts`` ({name: (kind, args)}) on a 4-slot mesh
+    of the whole group, rank 0 leading each part's session."""
+    mesh = _mesh(4)
+    out = {"rank": dist.get_rank(), "slots": list(mesh.local_slots)}
+    for name, spec in parts.items():
+        out[name] = run_part(name, spec, mesh)
+    return out
+
+
+def lead_failure_rank(state, query_edges, where):
+    """A failure on one rank of a led group: ``"leader"`` raises inside
+    its lead block; ``"follower"``'s engine fails on its second call;
+    ``"diverged"``: the leader's engine fails on its second call under
+    its door, which records the failure and serves on, so that its
+    outcome and the follower's differ."""
+    mesh = _mesh(4)
+    sess = Session(convert.plan_from_state_arrays(state), backend="spmd",
+                   device="cpu", mesh=mesh)
+    qs = [QueryGraph.make(e) for e in query_edges]
+    rank = dist.get_rank()
+    calls = {"n": 0}
+    run = sess.engine.execute
+
+    def failing(q):
+        # after the call's collectives: the group stays in step until
+        # the outcomes are compared
+        r = run(q)
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError(f"rank {rank}'s engine fails on purpose")
+        return r
+
+    if (where, rank) in (("follower", 1), ("diverged", 0)):
+        sess.engine.execute = failing
+    if rank != 0:
+        sess.follow()
+        return "released"
+    with sess.lead():
+        if where == "diverged":
+            with sess.serve(max_batch=1, max_delay_ms=0.0) as door:
+                futs = [door.submit(q) for q in qs]
+                _settled(futs)
+        else:
+            for q in qs:
+                sess.execute(q)
+            if where == "leader":
+                raise ValueError("rank 0 fails inside its lead block")
+    return "led"
