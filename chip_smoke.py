@@ -107,13 +107,15 @@ Phases, each fatal on any error or mismatch:
    through ``ingest_delta`` and a hot swap with the new graph, the
    served queries on it against the plain versions and
    ``match_pattern`` on the new graph.
-7. strategies, on the same graph and design workload: the horizontal
-   (minterm predicates), SHAPE and WARP plans at full size (seconds
-   split by offline step, WARP's label propagation on its own,
-   fragments, minterm fragments, redundancy, resident rows per site),
-   each served on the card (ledger line, launches; every join kernel
-   must launch) with every answer set equal to the vertical serve's and
-   to the same session on the plain versions; on the horizontal plan
+7. strategies, on a ``STRATEGY_TRIPLES`` WatDiv graph (cut from the
+   main graph for the time limit) with its own design workload and
+   served queries: the vertical plan's serve of it, then the horizontal
+   (minterm predicates), SHAPE and WARP plans (seconds split by offline
+   step, WARP's label propagation on its own, fragments, minterm
+   fragments, redundancy, resident rows per site), each served on the
+   card (ledger line, launches; every join kernel must launch) with
+   every answer set equal to the vertical plan's serve and to the same
+   session on the plain versions; on the horizontal plan
    the host backends ``local`` and ``baseline`` (numpy on the host, as
    in the reference) answer the first template queries and the shapes
    with the spmd serve's answers.  Then the JAX package's seeded ledger
@@ -189,7 +191,7 @@ Phases, each fatal on any error or mismatch:
    1,583,941,632 parameters, bf16): the forward at 2 x 4096, ``serve()``
    of 4 x (128 + 32), the decode state's bytes at ``max_len`` 160 and
    524,288 (equal), every layer's time mix chunked against token by
-   token over a 1 x 600 prompt (three 256-token chunks, the last
+   token over a 1 x 300 prompt (two 256-token chunks, the last
    padded: the WKV state and the outputs held; the end-to-end forward
    against the decode steps, which this random-weight model parts in
    the reference too, printed), float32 at 2 layers on the card against
@@ -218,9 +220,18 @@ Phases, each fatal on any error or mismatch:
    ninth step under the profiler (device busy share, largest kernels).
    The launch counts are set to 0 before the refusal and read after
    the ninth step: ``flash_attention``'s ``paths.train`` is that count.
-11. the kernels as one JSON line (each with the path it launched on and
+11. sharded: the LM substrate on a (1, 1) ("data", "model")
+   ``DeviceMesh`` over a one-rank NCCL group: qwen3-1.7b's forward
+   through ``make_forward_step(mesh=)`` (28 flash launches through
+   ``local_map``, logits held to the forward without a mesh), 3 train
+   steps and 16 decode steps against the same steps without a mesh,
+   qwen2-moe's forward with ``moe_shard_map`` (routing replayed), and
+   the dry run's llama3-405b ``train_4k`` cell on 16x16 on the host
+   (``sharded_phase``).
+12. the kernels as one JSON line (each with the path it launched on and
    its launches there, and ``paths``: launches per path (flash on
-   ``lm``, ``moe``, ``archs``, ``jamba`` and ``train``), the join
+   ``lm``, ``moe``, ``archs``, ``jamba``, ``train``, ``sharded`` and
+   ``sharded_moe``), the join
    kernels on ``spmd``, ``serve``, ``matcher``, ``site_loss``,
    ``adaptive``, ``horizontal``, ``shape``, ``warp``, ``distributed``,
    ``distributed_door`` and ``distributed_adaptive``), the card line,
@@ -235,6 +246,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -2033,13 +2045,36 @@ def host_backends(plan, queries, results, card: str,
               f"spmd serve's", flush=True)
 
 
-def strategies_phase(graph, design, queries, results, card: str,
-                     dev: str = "cuda") -> Dict[str, Dict[str, int]]:
-    """The horizontal, SHAPE and WARP plans of the smoke's graph, each
-    served on the card with answers equal to the vertical serve's
-    (``results``) and to the plain versions; the host backends on the
-    horizontal plan.  Returns the launches of each serve by kind."""
-    want = [answer_rows(r.bindings) for r in results]
+# the strategies' WatDiv graph, cut from TRIPLES to keep the smoke
+# inside its time limit (the horizontal, SHAPE and WARP plans took
+# 31 / 3 / 48 s to build at TRIPLES, PERF.md)
+STRATEGY_TRIPLES = 1_000_000
+
+
+def strategies_phase(card: str, dev: str = "cuda"
+                     ) -> Dict[str, Dict[str, int]]:
+    """The horizontal, SHAPE and WARP plans of a STRATEGY_TRIPLES WatDiv
+    graph (its design workload and served queries made as the main
+    graph's), each served on the card with answers equal to the vertical
+    plan's serve of the same graph and to the plain versions; the host
+    backends on the horizontal plan.  Returns the launches of each serve
+    by kind."""
+    from repro_torch.core import (PartitionConfig, Session, build_plan,
+                                  generate_watdiv, generate_workload)
+    t0 = time.perf_counter()
+    graph = generate_watdiv(STRATEGY_TRIPLES, seed=1)
+    design = generate_workload(graph, DESIGN_QUERIES, seed=2)
+    queries = served_queries(graph)
+    vertical = build_plan(graph, design,
+                          PartitionConfig(kind="vertical", num_sites=SITES))
+    session = Session(vertical, backend="spmd", device=dev,
+                      spmd_max_capacity=MAX_CAPACITY)
+    want = [answer_rows(session.execute(q).bindings) for q in queries]
+    print(f"strategies graph ({card}): {graph.num_edges} triples (cut from "
+          f"{TRIPLES}), the vertical plan and its serve of "
+          f"{len(queries)} queries in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del session, vertical
     out = {}
     for kind in STRATEGY_KINDS:
         plan = strategy_plan(graph, design, kind, card)
@@ -3665,7 +3700,9 @@ def arch_sweep_phase(card: str, dev: str = "cuda") -> int:
 # place of the largest (the normed wkv is rounded to bf16); the end-to-
 # end gap over the first RWKV_SHOWN positions is printed
 RWKV_ARCH = "rwkv6-1.6b"
-RWKV_PROMPT, RWKV_SHOWN = 600, 64
+# the check's prompt: two 256-chunks, the second padded (cut from 600,
+# three chunks, for the smoke's time: one chunk boundary is crossed)
+RWKV_PROMPT, RWKV_SHOWN = 300, 64
 RWKV_STATE_RTOL, RWKV_MIX_RTOL = 1e-5, 2.0 ** -6
 RWKV_LONG = 524_288              # long_500k's context
 # card against CPU: float32 at full width with 2 layers, 1 x 300 tokens
@@ -4000,16 +4037,23 @@ CHECK_LOSS_ATOL, CHECK_GNORM_RTOL = 1e-4, 1e-4
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_AT = 2, 256, 5, 3
 
 
-def _train_steps(cfg, model, n, batch, seq, seed=0, profile=None):
-    """``n`` steps of ``make_train_step`` on ``TokenStream`` batches,
+def _train_steps(cfg, model, n, batch, seq, seed=0, profile=None,
+                 mesh=None):
+    """``n`` steps of ``make_train_step`` (on ``mesh`` when given: the
+    bundle's step, which shards the model) on ``TokenStream`` batches,
     and with ``profile`` (a label) one step more under the profiler.
     Returns (losses, grad norms, step seconds, model) of the ``n``, and
     with ``profile`` the card's peak memory over them."""
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import is_dtensor
     from repro_torch.optim import AdamWConfig, adamw_init
     dev = next(model.parameters()).device
-    step = make_train_step(cfg, batch=batch, seq=seq, total_steps=n)
+    if mesh is None:
+        step = make_train_step(cfg, batch=batch, seq=seq, total_steps=n)
+    else:
+        step = make_train_step(cfg, batch=batch, seq=seq, total_steps=n,
+                               mesh=mesh).fn
     opt = adamw_init(dict(model.named_parameters()), AdamWConfig())
     stream = TokenStream(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
     losses, norms, secs = [], [], []
@@ -4019,6 +4063,8 @@ def _train_steps(cfg, model, n, batch, seq, seed=0, profile=None):
             x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
             t0 = time.perf_counter()
             model, opt, m = step(model, opt, x, y)
+            m = {k: v.full_tensor() if is_dtensor(v) else v
+                 for k, v in m.items()}
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             secs.append(time.perf_counter() - t0)
@@ -4159,6 +4205,217 @@ def train_phase(card: str, dev: str = "cuda") -> int:
     del model
     torch.cuda.empty_cache()
     return launches["flash_attention"]
+
+
+# ----------------------------------------------------------------------
+# Sharded phase: the LM substrate on a DeviceMesh
+# ----------------------------------------------------------------------
+
+# qwen3-1.7b at full width and depth through the mesh-aware steps
+# (``launch.steps`` with ``mesh=``) on a (1, 1) ("data", "model")
+# DeviceMesh over a one-rank NCCL group (NCCL refuses two ranks on one
+# card), each held to the same step without a mesh: the flash forward
+# at LM_BATCH x LM_SEQ, SHARD_TRAIN_STEPS train steps at TRAIN_BATCH x
+# TRAIN_SEQ, SHARD_DECODE greedy decode steps at SERVE_BATCH; then
+# qwen2-moe-a2.7b's forward with ``moe_shard_map`` (the routing of the
+# run without a mesh replayed); then one dry-run cell on the host
+SHARD_TRAIN_STEPS, SHARD_DECODE = 3, 16
+# step 1 shares its weights and batch with the run without a mesh: its
+# loss is held to 1e-6 and its grad norm to 1e-3 relative (read on an
+# H100: 117.57716 against 117.58144, 3.6e-5 apart), which a gradient
+# left out or counted twice would pass by far.  The later losses are a
+# backstop at tests/test_torch_train.py's bf16 loss tolerance: the
+# mesh's backward hands some gradients on in another memory layout
+# (made contiguous past ``local_map``), so cuBLAS sums the bf16 weight
+# gradients in another order (read on an H100: losses equal at step 1,
+# 6.4e-4 and 7.0e-3 apart at steps 2 and 3 of 3)
+SHARD_FIRST_LOSS_ATOL, SHARD_FIRST_NORM_RTOL = 1e-6, 1e-3
+SHARD_LOSS_ATOL = 2e-2
+SHARD_DRYRUN = ("llama3-405b", "train_4k")
+
+
+def _local_full(t: torch.Tensor) -> torch.Tensor:
+    from repro_torch.models.common import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _decode_tokens(step, model, first: torch.Tensor, cache, n: int):
+    """``n`` greedy decode steps from the tokens ``first`` [B]: the
+    tokens [n, B] (on the host) and the last cache."""
+    tok, out = first, []
+    for pos in range(n):
+        tok, cache = step(model, tok, cache, pos)
+        out.append(_local_full(tok).cpu())
+    return torch.stack(out), cache
+
+
+def sharded_phase(card: str, dev: str = "cuda") -> Dict[str, int]:
+    """The LM substrate across a DeviceMesh on the card (see above):
+    the sharded qwen3-1.7b logits, losses and tokens equal the unsharded
+    ones (logits within LOGIT_TOL, the first loss within
+    SHARD_FIRST_LOSS_ATOL, the first grad norm within
+    SHARD_FIRST_NORM_RTOL and the other losses within SHARD_LOSS_ATOL,
+    tokens exactly); flash_attention launches once per layer in the sharded
+    forwards (through ``local_map`` on each rank's heads); the
+    qwen2-moe forward with ``moe_shard_map`` equals its run without a
+    mesh; the dry-run cell prints.  Returns flash_attention's launches
+    on the sharded forwards (``sharded``: qwen3, ``sharded_moe``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_grid_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import make_forward_step, make_serve_step
+    from repro_torch.models import build_lm, get_api
+
+    out: Dict[str, int] = {}
+    # DTensor logs every two-step Partial reduction it schedules
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    if torch.device(dev).type == "cuda":
+        # the group's card, current before the mesh is made on it
+        torch.cuda.set_device(torch.device(dev).index or 0)
+    dist.init_process_group(
+        "nccl" if torch.device(dev).type == "cuda" else "gloo",
+        store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_grid_mesh((1, 1), ("data", "model"), device=dev)
+        print(f"sharded: {mesh} over a one-rank "
+              f"{dist.get_backend().upper()} group ({card})", flush=True)
+        cfg = dataclasses.replace(get_arch(LM_ARCH).config,
+                                  use_flash_kernel=True)
+        model = build_lm(cfg, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                             generator=gen, device=dev, dtype=torch.int32)
+        forward = make_forward_step(cfg)
+        want = forward(model, toks)
+        prompts = torch.from_numpy(make_prompts(
+            cfg, SERVE_BATCH, SERVE_PROMPT, 0)).to(dev)
+        api = get_api(cfg)
+        plain_tokens, _c = _decode_tokens(
+            make_serve_step(cfg), model, prompts[:, 0],
+            api.init_cache(cfg, SERVE_BATCH, SHARD_DECODE, dev),
+            SHARD_DECODE)
+        t_plain = host_s(lambda: forward(model, toks))
+        bundle = make_forward_step(cfg, mesh=mesh, batch=LM_BATCH,
+                                   seq=LM_SEQ)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = bundle.fn(model, toks)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        out["sharded"] = ops.LAUNCHES["flash_attention"]
+        what = "sharded forward (1x1 mesh) vs the forward without a mesh"
+        diff = hold_logits(_local_full(got).reshape(-1, cfg.vocab_size),
+                           want.reshape(-1, cfg.vocab_size), what)
+        print(f"{what}: logits max abs difference {diff!r}; placements "
+              f"{tuple(got.placements)}; flash_attention launches "
+              f"{out['sharded']}", flush=True)
+        if out["sharded"] != cfg.num_layers:
+            fail(f"flash_attention launched {out['sharded']} times in a "
+                 f"{cfg.num_layers}-layer sharded forward")
+        del got, want
+        t_shard = host_s(lambda: bundle.fn(model, toks))
+        print(f"sharded forward ({card}): {LM_BATCH}x{LM_SEQ} tokens in "
+              f"{t_shard:.3f} s warm ({LM_BATCH * LM_SEQ / t_shard:.1f} "
+              f"tok/s), {t_first:.3f} s for the first call (DTensor's "
+              f"sharding propagation), {t_plain:.3f} s without a mesh "
+              f"(host clock)", flush=True)
+        sb = make_serve_step(cfg, mesh=mesh, batch=SERVE_BATCH,
+                             max_len=SHARD_DECODE)
+        t0 = time.perf_counter()
+        tokens, _c = _decode_tokens(
+            sb.fn, model, prompts[:, 0],
+            api.init_cache(cfg, SERVE_BATCH, SHARD_DECODE, dev),
+            SHARD_DECODE)
+        t_dec = time.perf_counter() - t0
+        if not torch.equal(tokens, plain_tokens):
+            fail(f"sharded decode: tokens {tokens.tolist()} differ from the "
+                 f"decode without a mesh {plain_tokens.tolist()}")
+        print(f"sharded decode ({card}): {SHARD_DECODE} greedy steps at "
+              f"batch {SERVE_BATCH} in {t_dec:.2f} s, tokens equal the "
+              f"decode without a mesh", flush=True)
+        del model, _c
+        torch.cuda.empty_cache()
+
+        tcfg = get_arch(LM_ARCH).optimized_config()
+        runs = []
+        for m in (None, mesh):
+            model = build_lm(tcfg, device=dev, seed=0)
+            losses, norms, secs, model = _train_steps(
+                tcfg, model, SHARD_TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                mesh=m)
+            runs.append((losses, norms, secs))
+            del model
+            torch.cuda.empty_cache()
+        (lu, nu, su), (ls, ns, ss) = runs
+        gap = max(abs(a - b) for a, b in zip(lu, ls))
+        print(f"sharded train ({card}): {SHARD_TRAIN_STEPS} steps at "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ}, losses {ls} (without a mesh "
+              f"{lu}, max abs difference {gap!r}), grad norms {ns} ({nu}), "
+              f"step s {[round(t, 3) for t in ss]} "
+              f"({[round(t, 3) for t in su]})", flush=True)
+        norm_gap = abs(nu[0] - ns[0]) / abs(nu[0])
+        print(f"sharded train: step-1 grad norm relative difference "
+              f"{norm_gap!r}", flush=True)
+        if not (abs(lu[0] - ls[0]) <= SHARD_FIRST_LOSS_ATOL
+                and norm_gap <= SHARD_FIRST_NORM_RTOL
+                and gap <= SHARD_LOSS_ATOL):
+            fail(f"sharded train: first losses differ by "
+                 f"{abs(lu[0] - ls[0])}, first grad norms by {norm_gap} "
+                 f"relative, losses by up to {gap}")
+
+        mcfg = dataclasses.replace(get_arch(MOE_ARCH).config,
+                                   use_flash_kernel=True, moe_shard_map=True)
+        model = build_lm(mcfg, device=dev, seed=0)
+        mtoks = torch.randint(0, mcfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(3), device=dev,
+                              dtype=torch.int32)
+        with routing_log() as r:
+            mwant = make_forward_step(mcfg)(model, mtoks)
+        mb = make_forward_step(mcfg, mesh=mesh, batch=MOE_BATCH,
+                               seq=MOE_SEQ)
+        ops.reset_launches()
+        with replayed_routing([x["idx"] for x in r]) as st:
+            mgot = mb.fn(model, mtoks)
+        torch.cuda.synchronize()
+        out["sharded_moe"] = ops.LAUNCHES["flash_attention"]
+        what = "sharded qwen2-moe forward (moe_shard_map, 1x1 mesh)"
+        diff = hold_logits(_local_full(mgot).reshape(-1, mcfg.vocab_size),
+                           mwant.reshape(-1, mcfg.vocab_size), what)
+        print(f"{what} vs without a mesh ({replay_line(st, what)}): logits "
+              f"max abs difference {diff!r}; flash_attention launches "
+              f"{out['sharded_moe']}", flush=True)
+        if out["sharded_moe"] != mcfg.num_layers:
+            fail(f"flash_attention launched {out['sharded_moe']} times in "
+                 f"the {mcfg.num_layers}-layer sharded MoE forward")
+        del model, mgot, mwant, r
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    arch, shape = SHARD_DRYRUN
+    try:
+        rep = dryrun.run_cell(arch, shape, False,
+                              ROOT / "build" / "dryrun_torch")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    mem, hc = rep["memory"], rep["hlo_accounting"]
+    print(f"dry run {arch} {shape} {rep['mesh']} (host, meta tensors over a "
+          f"fake group of 256): argument {mem['argument_bytes_per_device']} "
+          f"bytes, output {mem['output_bytes_per_device']} bytes, temp "
+          f"{mem['temp_bytes_per_device']!r} bytes per device; "
+          f"{hc['flops_per_device']!r} FLOPs, "
+          f"{hc['hbm_traffic_bytes_per_device']!r} traffic bytes per "
+          f"device; collective bytes {hc['collective_bytes']}, counts "
+          f"{hc['collective_counts']}; {rep['trace_sec']} s", flush=True)
+    if not hc["flops_per_device"] > 0:
+        fail(f"dry run {arch} {shape}: no FLOPs counted")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -4764,7 +5021,7 @@ def spmd_phase(card: str):
     del plan
     torch.cuda.empty_cache()
     phase_seconds("adaptive")
-    strategies = strategies_phase(graph, design, queries, results, card)
+    strategies = strategies_phase(card)
     ledger_phase(card)
     phase_seconds("strategies and ledger")
     for k in kernels:
@@ -4868,6 +5125,10 @@ def main() -> None:
         "moe": moe, "archs": archs, "jamba": jamba,
         "train": train_phase(card)}
     print(f"phase seconds: train {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    kernels["flash_attention"]["paths"].update(sharded_phase(card))
+    print(f"phase seconds: sharded {time.perf_counter() - t0:.1f}",
+          flush=True)
 
     rows = []
     for name, (source, replaces, path) in KERNELS.items():

@@ -3,10 +3,8 @@ d_ff=24576, MoE 16 experts top-2, Mamba:attention 7:1 interleave.
 [arXiv:2403.19887; hf]
 
 long_500k runs: 63 of the 72 layers are mamba with an O(1) state; the
-9 attention layers hold the long KV cache.  The reference's config
-also turns on FSDP and sequence-sharded decode caches (``fsdp``,
-``seq_shard_decode``), which feed its sharding rules engine; one device
-has none, so the port's config drops both and keeps full remat.  bf16
+9 attention layers hold the long KV cache.  FSDP and sequence-sharded
+decode caches (``fsdp``, ``seq_shard_decode``) with full remat: bf16
 parameters alone are 797 GB.
 """
 from ..models import ModelConfig
@@ -18,7 +16,7 @@ CONFIG = ModelConfig(
     d_ff=24576, vocab_size=65536,
     num_experts=16, top_k=2, moe_d_ff=24576,
     attn_every=8, moe_every=2, ssm_d_state=16, ssm_conv=4, ssm_expand=2,
-    remat="full", rope_theta=1e6,
+    fsdp=True, remat="full", seq_shard_decode=True, rope_theta=1e6,
 )
 
 SMOKE = ModelConfig(

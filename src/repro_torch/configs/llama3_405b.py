@@ -1,10 +1,8 @@
 """llama3-405b [dense]: 126L d_model=16384 128H (GQA kv=8) d_ff=53248
 vocab=128256. [arXiv:2407.21783; unverified]
 
-The reference's production sharding turns on FSDP and sequence-sharded
-decode caches (``fsdp``, ``seq_shard_decode``), which feed its sharding
-rules engine; one device has none, so the port's config drops both and
-keeps full remat.  bf16 params alone are 810 GB.
+The production sharding for this arch turns on FSDP (params sharded over
+data as well as model) + full remat: bf16 params alone are 810 GB.
 """
 from ..models import ModelConfig
 from .base import ArchSpec, lm_shapes
@@ -13,7 +11,7 @@ CONFIG = ModelConfig(
     name="llama3-405b", family="dense",
     num_layers=126, d_model=16384, num_heads=128, num_kv_heads=8,
     head_dim=128, d_ff=53248, vocab_size=128256, rope_theta=5e5,
-    remat="full",
+    fsdp=True, remat="full", seq_shard_decode=True,
 )
 
 SMOKE = ModelConfig(
@@ -25,7 +23,7 @@ SMOKE = ModelConfig(
 SPEC = ArchSpec(
     arch_id="llama3-405b", config=CONFIG, smoke=SMOKE,
     shapes=lm_shapes(long_ok=False),
-    optimized={},  # remat already in config
+    optimized={},  # fsdp+remat already in config
     source="arXiv:2407.21783; unverified",
     notes="GQA, 128k vocab; FSDP+remat required at this scale.",
 )

@@ -22,8 +22,14 @@ queries in the same order, as a ``torchrun`` script would.
 start method, each initialising the group from a ``FileStore`` with a
 timeout and calling one module-level function; it returns every rank's
 result, or terminates every rank and raises when one raises, dies or
-the deadline passes.  ``make_production_mesh`` (TPU pod shapes) has no
-counterpart here.
+the deadline passes.
+
+The LM substrate shards over a ``DeviceMesh`` of named axes instead
+(``torch.distributed.device_mesh``, over the default group):
+``make_production_mesh`` gives the reference's production shapes,
+(16, 16) ("data", "model") or (2, 16, 16) ("pod", "data", "model"), and
+``make_grid_mesh`` any other shape (the tests' (2, 2), the card's
+(1, 1)).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..models.common import mesh_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,8 +142,50 @@ def make_host_mesh(num_sites: int = 1, axis: str = "sites", *,
                     group, axis)
 
 
-def mesh_axis_sizes(mesh: SiteMesh) -> dict:
-    return {mesh.axis: mesh.slots}
+def mesh_axis_sizes(mesh: Any) -> dict:
+    """Axis name -> size of a ``SiteMesh`` or a ``DeviceMesh``."""
+    if isinstance(mesh, SiteMesh):
+        return {mesh.axis: mesh.slots}
+    return mesh_sizes(mesh)
+
+
+def make_grid_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                   device: Union[str, torch.device] = "cuda") -> Any:
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
+    default process group, rank r at the row-major coordinate r (as
+    ``jax.sharding.Mesh`` lays out ``devices().reshape(shape)``).  The
+    group must be initialised with exactly ``prod(shape)`` ranks; each
+    rank's device type is ``device``'s ("cuda" over NCCL, each rank on
+    its current card; "cpu" over gloo, or the "fake" backend's
+    dry run)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} has {len(shape)} "
+                         f"axes, names {tuple(axes)}")
+    n = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(f"need {n} ranks for a {tuple(shape)} mesh, have "
+                           f"{have}; start a process group of {n} ranks "
+                           f"(launch/dryrun.py runs on the fake backend)")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        resolve_device(dev)
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Union[str, torch.device] = "cuda") -> Any:
+    """16x16 single pod (256 ranks) or 2x16x16 multi-pod (512 ranks).
+
+    Axes: ("data", "model") / ("pod", "data", "model").  "pod" is the
+    cross-pod data/FSDP axis.  The default group must have that many
+    ranks: a ``launch``ed group, or the "fake" backend of the dry run
+    (``launch/dryrun.py``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_grid_mesh(shape, axes, device=device)
 
 
 # ----------------------------------------------------------------------

@@ -9,7 +9,9 @@ match the published interleave (9 attention, 63 mamba, 36 MoE and 36
 dense layers at 72), the order within a block is the reference's
 regrouping, not the published one.  The reference's scans over blocks
 and sublayers become Python loops over ``blocks`` and each block's
-``moe_layers`` and ``dense_layers``.
+``moe_layers`` and ``dense_layers``.  On a mesh the residual stream
+stays at the activation layout (``common.residual``) and the layers do
+what ``layers.py`` and ``ssm.py`` say.
 """
 from __future__ import annotations
 
@@ -17,14 +19,14 @@ import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .common import (ModelConfig, ParamDef, cache_device, maybe_remat,
-                     next_token_nll, register_params, rms_norm, softcap)
+from .common import (ModelConfig, ParamDef, cache_device, embed_tokens,
+                     maybe_remat, next_token_nll, register_params, residual,
+                     rms_norm, softcap)
 from .layers import (MLP, Attention, MoE, attn_apply, attn_decode,
-                     attn_defs, make_kv_cache, mlp_apply, mlp_defs,
-                     moe_apply, moe_defs)
+                     attn_defs, kv_cache_axes, make_kv_cache, mlp_apply,
+                     mlp_defs, moe_apply, moe_defs)
 from .lm import _norm_def, stack_defs
 from .ssm import Mamba, mamba_apply, mamba_defs, mamba_state
 
@@ -124,27 +126,28 @@ def _block(cfg: ModelConfig, pb: JambaBlock, x: torch.Tensor,
            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One super-block: (x, the mean aux loss of its MoE sublayers)."""
     eps = cfg.norm_eps
-    x = x + attn_apply(cfg, pb.attn, rms_norm(x, pb.attn_ln1, eps),
-                       positions)
-    x = x + mlp_apply(cfg, pb.attn_mlp, rms_norm(x, pb.attn_ln2, eps))
+    x = residual(x, attn_apply(cfg, pb.attn, rms_norm(x, pb.attn_ln1, eps),
+                               positions))
+    x = residual(x, mlp_apply(cfg, pb.attn_mlp,
+                              rms_norm(x, pb.attn_ln2, eps)))
     auxs = []
     for pl in pb.moe_layers:
         h, _ = mamba_apply(cfg, pl.mamba, rms_norm(x, pl.ln1, eps))
-        x = x + h
+        x = residual(x, h)
         h, aux = moe_apply(cfg, pl.moe, rms_norm(x, pl.ln2, eps))
-        x = x + h
+        x = residual(x, h)
         auxs.append(aux)
     for pl in pb.dense_layers:
         h, _ = mamba_apply(cfg, pl.mamba, rms_norm(x, pl.ln1, eps))
-        x = x + h
-        x = x + mlp_apply(cfg, pl.mlp, rms_norm(x, pl.ln2, eps))
+        x = residual(x, h)
+        x = residual(x, mlp_apply(cfg, pl.mlp, rms_norm(x, pl.ln2, eps)))
     return x, _mean(auxs, x.device)
 
 
 def _run(cfg: ModelConfig, params: Jamba, tokens: torch.Tensor,
          positions: Optional[torch.Tensor], remat: bool
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    x = F.embedding(tokens.long(), params.embed)
+    x = embed_tokens(params.embed, tokens)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
@@ -206,6 +209,14 @@ def jamba_init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "dense_h": hd, "dense_conv": cd}
 
 
+def jamba_cache_axes(cfg: ModelConfig):
+    kv = kv_cache_axes(cfg, stacked=True)
+    m = ("layers", None, "batch", "mlp", "state")
+    c = ("layers", None, "batch", None, "mlp")
+    return {"kv": kv, "moe_h": m, "moe_conv": c,
+            "dense_h": m, "dense_conv": c}
+
+
 def _mamba_step(cfg: ModelConfig, pl: MambaSublayer, x: torch.Tensor,
                 h_state: torch.Tensor, conv_state: torch.Tensor
                 ) -> torch.Tensor:
@@ -215,7 +226,7 @@ def _mamba_step(cfg: ModelConfig, pl: MambaSublayer, x: torch.Tensor,
                               state=(h_state, conv_state))
     h_state.copy_(h2)
     conv_state.copy_(c2)
-    return x + h
+    return residual(x, h)
 
 
 @torch.no_grad()
@@ -225,20 +236,23 @@ def jamba_decode(cfg: ModelConfig, params: Jamba, token: torch.Tensor,
     """token: [B] int; pos: the timeline index of this token.  Returns
     (logits [B, V], cache), the cache updated in place."""
     eps = cfg.norm_eps
-    x = F.embedding(token[:, None].long(), params.embed)
+    x = embed_tokens(params.embed, token[:, None])
     for i, pb in enumerate(params.blocks):
         kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
         h, _ = attn_decode(cfg, pb.attn, rms_norm(x, pb.attn_ln1, eps), kv,
                            pos)
-        x = x + h
-        x = x + mlp_apply(cfg, pb.attn_mlp, rms_norm(x, pb.attn_ln2, eps))
+        x = residual(x, h)
+        x = residual(x, mlp_apply(cfg, pb.attn_mlp,
+                                  rms_norm(x, pb.attn_ln2, eps)))
         for j, pl in enumerate(pb.moe_layers):
             x = _mamba_step(cfg, pl, x, cache["moe_h"][i, j],
                             cache["moe_conv"][i, j])
-            x = x + moe_apply(cfg, pl.moe, rms_norm(x, pl.ln2, eps))[0]
+            x = residual(x, moe_apply(cfg, pl.moe,
+                                      rms_norm(x, pl.ln2, eps))[0])
         for j, pl in enumerate(pb.dense_layers):
             x = _mamba_step(cfg, pl, x, cache["dense_h"][i, j],
                             cache["dense_conv"][i, j])
-            x = x + mlp_apply(cfg, pl.mlp, rms_norm(x, pl.ln2, eps))
+            x = residual(x, mlp_apply(cfg, pl.mlp,
+                                      rms_norm(x, pl.ln2, eps)))
     x = rms_norm(x[:, 0], params.final_norm, eps)
     return softcap(x @ params.head, cfg.logit_softcap), cache

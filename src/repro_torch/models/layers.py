@@ -11,18 +11,46 @@ Prefill attention goes through the flash kernel
 decode attention over the KV cache is plain tensor code, as it is plain
 jnp in the reference.  So are the MoE's routing and expert products:
 the reference computes them outside any Pallas kernel.
+
+On a mesh (DTensor parameters and activations, ``launch.steps`` with
+``mesh=``) most operations run through DTensor's sharding propagation.
+Where an operation has no DTensor strategy, or one that gathers what
+GSPMD would keep sharded, the code says what it does instead:
+
+- attention (``_attend``, and the flash kernel in ``_sdpa``) runs on
+  each rank's local batch rows and heads (``common.map_local``, torch's
+  ``local_map``): DTensor's einsum merges the sharded batch and head
+  dimensions and gathers them;
+- the head split of q / k / v (``reshape``) gathers when the head
+  shards do not divide the heads (llama3-405b's 8 kv heads over 16),
+  and ``_attend`` then expands k and v to the query heads;
+- the decode cache write (``_write_slot``) is each rank's write into
+  its local shard: a slice assignment has no strategy on a sharded
+  sequence (``seq_shard_decode``);
+- the MoE's routing (the sort, ``scatter_add_`` / ``scatter_``,
+  ``gather``, ``repeat_interleave``) runs on the replicated plain
+  tokens (``_moe_global``: the global routing and capacity of the
+  jitted reference), its expert products on DTensors under the
+  reference's constraints; ``moe_shard_map`` runs on each rank's local
+  shards with explicit collectives (``_moe_shard_map``, also through
+  ``map_local``).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+import types
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops as kops
-from .common import ModelConfig, ParamDef, apply_rope, register_params, rms_norm
+from .common import (ModelConfig, ParamDef, SumOverRanks, apply_rope,
+                     constrain, current_sharding_ctx, is_dtensor,
+                     local_shards, map_local, mesh_sizes, no_constraints,
+                     register_params, reshape, rms_norm, shard_index)
 
 
 # ======================================================================
@@ -66,9 +94,9 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    q = reshape(q, (B, S, H, Dh))
+    k = reshape(k, (B, S, Hkv, Dh))
+    v = reshape(v, (B, S, Hkv, Dh))
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -80,7 +108,37 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     """Plain float32 GQA attention: q [B,Sq,H,Dh], k/v [B,Skv,Hkv,Dh],
-    mask [Sq, Skv] (True = visible) -> [B,Sq,H*Dh] in q.dtype."""
+    mask [Sq, Skv] (True = visible) -> [B,Sq,H*Dh] in q.dtype.
+
+    On a mesh (DTensors) it runs on each rank's local batch rows and
+    heads (``local_shards``: the heads split on "model" when it divides
+    H and Hkv); DTensor's einsum would merge the sharded batch and head
+    dimensions into one and gather them.  When the head shards do not
+    divide Hkv (llama3-405b: 128 heads over 16 ranks, 8 kv heads) k and
+    v are expanded to the H heads first, so the attention stays split
+    by head."""
+    if not is_dtensor(q):
+        return _attend_local(q, k, v, mask)
+    from torch.distributed.tensor import Replicate, Shard
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    n = mesh_sizes(q.device_mesh).get("model", 1)
+    if Hkv != H and H % n == 0 and Hkv % n:
+        # gather a sequence-sharded cache before the expansion, not after
+        k, v = (t.redistribute(t.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in t.placements]) for t in (k, v))
+        k, v = (reshape(t[:, :, :, None].expand(B, t.shape[1], Hkv,
+                                                H // Hkv, Dh),
+                        (B, t.shape[1], H, Dh)) for t in (k, v))
+        Hkv = H
+    return local_shards(lambda *qkv: (_attend_local(*qkv, mask),),
+                        (q, k, v), ((0, 2),) * 3, ((0, 2),), batch=B,
+                        chans=math.gcd(H, Hkv))[0]
+
+
+def _attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     qh = q.reshape(B, Sq, Hkv, H // Hkv, Dh)
@@ -105,10 +163,12 @@ def _sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     B, Sq, H, Dh = q.shape
     Skv = k.shape[1]
     if cfg.use_flash_kernel and Sq == Skv and kv_valid_len is None:
-        out = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True,
-                             window=cfg.window)
-        return out.transpose(1, 2).reshape(B, Sq, H * Dh)
+        attend = functools.partial(kops.attention, causal=True,
+                                   window=cfg.window)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out = (_local_heads(attend, qt, kt, vt) if is_dtensor(qt)
+               else attend(qt, kt, vt))
+        return reshape(out.transpose(1, 2), (B, Sq, H * Dh))
     qpos = torch.arange(Sq, device=q.device) + q_offset \
         + (Skv - Sq if kv_valid_len is None else 0)
     kpos = torch.arange(Skv, device=q.device)
@@ -120,11 +180,59 @@ def _sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return _attend(q, k, v, mask)
 
 
+def _local_heads(attend: Callable, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """``attend`` (the flash kernel's wrapper) on each rank's local batch
+    rows and heads of DTensors q [B, H, S, Dh], k / v [B, Hkv, S, Dh]
+    (``map_local``): the batch keeps q's data sharding, the heads are
+    split on "model" when it divides both H and Hkv (each rank then
+    holds whole GQA groups) and gathered otherwise.  No collective runs
+    inside; the output comes out at the same layout."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    H, Hkv = q.shape[1], k.shape[1]
+    lay = []
+    for d, pl in enumerate(q.placements):
+        n = mesh.shape[d]
+        if isinstance(pl, Shard) and pl.dim == 0:
+            lay.append(Shard(0))
+        elif mesh.mesh_dim_names[d] == "model" and H % n == 0 \
+                and Hkv % n == 0:
+            lay.append(Shard(1))
+        else:
+            lay.append(Replicate())
+    return map_local(attend, (q, k, v), (lay,) * 3, lay)
+
+
 def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence (prefill)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     return _sdpa(cfg, q, k, v) @ p.wo
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """cache [B, Smax, ...][:, slot] = new [B, 1, ...], in place.  On a
+    mesh (a DTensor cache, its sequence possibly sharded on "model")
+    each rank writes its local shard, and only the rank whose sequence
+    shard holds ``slot``: a slice assignment has no DTensor strategy on
+    a sharded dimension, and a ``where`` over the positions gathers the
+    whole cache."""
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache[:, slot:slot + 1] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    local = cache.to_local()
+    new = new.redistribute(mesh, [
+        Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+        for pl in cache.placements]).to_local()
+    seq = [d for d, pl in enumerate(cache.placements)
+           if isinstance(pl, Shard) and pl.dim == 1]
+    at = slot - shard_index(mesh, seq) * local.shape[1]
+    if 0 <= at < local.shape[1]:
+        local[:, at:at + 1] = new
 
 
 def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -147,8 +255,8 @@ def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
     slot = pos % Smax if cfg.window is not None else pos
-    cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
-    cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+    _write_slot(cache["k"], k, slot)
+    _write_slot(cache["v"], v, slot)
     if cfg.window is not None:
         kpos = torch.arange(Smax, device=x.device)
         out = _attend(q, cache["k"], cache["v"],
@@ -157,6 +265,15 @@ def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         out = _sdpa(cfg, q, cache["k"], cache["v"], q_offset=pos,
                     kv_valid_len=pos + 1)
     return out @ p.wo, cache
+
+
+def kv_cache_axes(cfg: ModelConfig, stacked: bool = True):
+    """Logical axes for the cache (rules map cache_seq -> model when the
+    long-context seq-sharding option is on)."""
+    axes = ("batch", "cache_seq", "kv_heads", None)
+    if stacked:
+        axes = ("layers",) + axes
+    return {"k": axes, "v": axes}
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -275,10 +392,10 @@ def _groups(cfg: ModelConfig, x: torch.Tensor
 
 def _route(cfg: ModelConfig, p: MoE, x: torch.Tensor,
            expert_perm: Optional[Union[torch.Tensor, Sequence[int]]]):
-    """Top-k routing of x [R, T, D]: (probs [R, T, E] float32, expert
-    ids [R, T, K], renormalised weights [R, T, K]).  A stable descending
-    sort picks the experts, so a tie goes to the lower id, as
-    ``jax.lax.top_k`` does."""
+    """Top-k routing of x [R, T, D] by ``p.router``: (probs [R, T, E]
+    float32, expert ids [R, T, K], renormalised weights [R, T, K]).  A
+    stable descending sort picks the experts, so a tie goes to the lower
+    id, as ``jax.lax.top_k`` does."""
     gates = x.float() @ p.router.float()
     if expert_perm is not None:
         gates = gates[..., torch.as_tensor(expert_perm, dtype=torch.long,
@@ -329,23 +446,46 @@ def moe_routing(cfg: ModelConfig, p: MoE, x: torch.Tensor,
             "loads": loads, "capacity": C}
 
 
-def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-              expert_perm=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (y, aux_loss).
+def _expert_ffn(cfg: ModelConfig, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor, xs: torch.Tensor, C: int) -> torch.Tensor:
+    """Every expert's gated FFN on its slots: xs [R, E*C, D] -> [R, E*C,
+    D].  With DTensor weights (a mesh) the replicated slots become a
+    DTensor and the products run as the reference's batched [R, E, C, D]
+    products (``matmul``: DTensor's ``einsum`` has no backward for a
+    sharded R), under its constraints (``layers.py:321-332``: the
+    buffers keep "batch" sharded, the intermediate ``expert_mlp``-sharded
+    in the model's dtype); the result comes back replicated for the
+    combine."""
+    R, N, D = xs.shape
+    E = w1.shape[0]
+    if is_dtensor(w1):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = w1.device_mesh
+        xs = constrain(DTensor.from_local(xs, mesh,
+                                          [Replicate()] * mesh.ndim,
+                                          run_check=False),
+                       ("batch", None, None))
+        xe = xs.reshape(R, E, C, D)
+        h = F.silu(torch.matmul(xe, w1)) * torch.matmul(xe, w3)
+        h = constrain(h.to(cfg.dtype), ("batch", None, None, "expert_mlp"))
+        ye = torch.matmul(h, w2).to(cfg.dtype)
+        return constrain(ye.reshape(R, N, D), ("batch", None, None)
+                         ).full_tensor()
+    xe = xs.reshape(R, E, C, D).transpose(0, 1).reshape(E, R * C, D)
+    h = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    return torch.bmm(h, w2).reshape(E, R, C, D).transpose(0, 1).reshape(
+        R, N, D)
 
-    Route top-k, give each (token, expert) assignment its place among
-    the expert's in token order, drop those past the capacity, run every
-    expert's FFN on its [C, D] slots as one batched product, and add
-    each token's K weighted results (summed per token over its K
-    assignments, so the result does not depend on the order of atomic
-    adds).  ``expert_perm`` (``p[new_id] = old_id``, from
-    ``placement.affinity_expert_permutation``) relabels experts at the
-    router, so checkpointed expert weights stay put.
-    """
-    B, S, D = x.shape
+
+def _dispatch(cfg: ModelConfig, p: Any, xr: torch.Tensor, C: int,
+              mean_of_groups: bool, expert_perm=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route (``_route``), dispatch, run the experts and combine for the
+    groups xr [R, T, D], a plain tensor; ``p`` holds ``router``, ``w1``,
+    ``w3`` and ``w2`` (plain tensors, or the experts' DTensors): (y [R,
+    T, D], aux loss)."""
     E, K = cfg.num_experts, cfg.top_k
-    xr, C, mean_of_groups = _groups(cfg, x)
-    R, T, _ = xr.shape
+    R, T, D = xr.shape
     probs, idx, w = _route(cfg, p, xr, expert_perm)
     loads, pos = _slots(idx, E)
     e_flat = idx.reshape(R, T * K)
@@ -358,21 +498,131 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     xa = xr.repeat_interleave(K, dim=1).to(cfg.dtype)      # [R, T*K, D]
     xs = xr.new_zeros((R, E * C + 1, D), dtype=cfg.dtype)
     xs.scatter_(1, dest[..., None].expand(-1, -1, D), xa)
-    xe = xs[:, :E * C].reshape(R, E, C, D).transpose(0, 1).reshape(
-        E, R * C, D)
-    h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
-    ye = torch.bmm(h, p.w2).reshape(E, R, C, D).transpose(0, 1).reshape(
-        R, E * C, D)
+    ye = _expert_ffn(cfg, p.w1, p.w3, p.w2, xs[:, :E * C], C)
 
     # combine
     back = torch.gather(ye, 1, slot[..., None].expand(-1, -1, D))
     back = back * (w.reshape(R, T * K) * keep).to(ye.dtype)[..., None]
-    y = back.reshape(R, T, K, D).sum(2).reshape(B, S, D)
+    y = back.reshape(R, T, K, D).sum(2)
     if mean_of_groups:
         aux = _aux(probs, loads, K).mean()
     else:
         aux = _aux(probs.reshape(1, R * T, E), loads.sum(0, keepdim=True),
                    K)[0]
+    return y, aux
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (differentiably); a plain
+    tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _moe_global(cfg: ModelConfig, p: MoE, x: torch.Tensor, expert_perm
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply``'s dispatch of a DTensor x with the reference's
+    global routing: every rank routes all B*S tokens (the capacity and
+    the aux loss those of the whole batch, as the jitted reference
+    computes them), the experts run on their weights' shards
+    (``_expert_ffn``), and y comes back at x's placements.  The sorts,
+    scatters and gathers of the routing have no DTensor strategy, so
+    they run on the replicated plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    xf = x.full_tensor()
+    xr, C, mean_of_groups = _groups(cfg, xf)
+    weights = types.SimpleNamespace(router=_full(p.router), w1=p.w1,
+                                    w3=p.w3, w2=p.w2)
+    y, aux = _dispatch(cfg, weights, xr, C, mean_of_groups, expert_perm)
+    rep = [Replicate()] * mesh.ndim
+    y = DTensor.from_local(y.reshape(xf.shape), mesh, rep, run_check=False)
+    return (y.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                  for pl in x.placements]),
+            DTensor.from_local(aux, mesh, rep, run_check=False))
+
+
+def _moe_shard_map(cfg: ModelConfig, p: MoE, x: torch.Tensor, C: int,
+                   expert_perm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Manual-collective MoE (the reference's ``_moe_shard_map``,
+    ``layers.py:335-392``): each rank routes its data shard of the batch
+    (replicated over "model": identical inputs and a replicated router)
+    with the capacity ``C`` of the global shape, runs every expert's FFN
+    on its local d_ff shard, combines the partial results, and one
+    all-reduce over "model" sums the combined [B, S, D]; the aux loss is
+    averaged over the data axes.  Without a "model" or data axis larger
+    than 1, or with a batch the data axes do not divide, it is the
+    global path, as the reference falls back to ``_moe_route_batched``.
+
+    The local products run under ``map_local``, which gives x a Partial
+    gradient over "model", the weights one over the data axes and the
+    router one over both."""
+    from torch.distributed.tensor import Replicate, Shard
+    ctx = current_sharding_ctx()
+    if ctx is None:
+        return _moe_global(cfg, p, x, expert_perm)
+    mesh, _rules = ctx
+    sizes = mesh_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    dp = [names.index(a) for a in ("pod", "data") if sizes.get(a, 1) > 1]
+    tp = names.index("model") if sizes.get("model", 1) > 1 else None
+    ndp = math.prod(mesh.shape[d] for d in dp)
+    if (tp is None and not dp) or x.shape[0] % ndp:
+        return _moe_global(cfg, p, x, expert_perm)
+
+    def lay(shard_dp, shard_tp):
+        return [shard_dp if d in dp and shard_dp is not None else
+                shard_tp if d == tp and shard_tp is not None else
+                Replicate() for d in range(mesh.ndim)]
+
+    def local_moe(x_loc, router, w1, w3, w2):
+        weights = types.SimpleNamespace(router=router, w1=w1, w3=w3, w2=w2)
+        with no_constraints():
+            y, aux = _dispatch(cfg, weights, x_loc, C, False, expert_perm)
+        if tp is not None:
+            y = SumOverRanks.apply(y, mesh, (tp,))
+            # each "model" rank holds the whole aux: its gradient is
+            # shared among them, as the router's Partial gradient sums them
+            ntp = mesh.shape[tp]
+            aux = aux.detach() + (aux - aux.detach()) / ntp
+        if dp:
+            aux = SumOverRanks.apply(aux, mesh, tuple(dp)) / ndp
+        return y, aux
+
+    return map_local(
+        local_moe, (x, p.router, p.w1, p.w3, p.w2),
+        (lay(Shard(0), None), lay(None, None), lay(None, Shard(2)),
+         lay(None, Shard(2)), lay(None, Shard(1))),
+        (lay(Shard(0), None), lay(None, None)))
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+              expert_perm=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (y, aux_loss).
+
+    Route top-k, give each (token, expert) assignment its place among
+    the expert's in token order, drop those past the capacity, run every
+    expert's FFN on its [C, D] slots as one batched product, and add
+    each token's K weighted results (summed per token over its K
+    assignments, so the result does not depend on the order of atomic
+    adds).  ``expert_perm`` (``p[new_id] = old_id``, from
+    ``placement.affinity_expert_permutation``) relabels experts at the
+    router, so checkpointed expert weights stay put.
+
+    On a mesh (x a DTensor) ``moe_shard_map`` with S > 1 runs
+    ``_moe_shard_map``; every other dispatch routes globally
+    (``_moe_global``).
+    """
+    B, S, D = x.shape
+    if is_dtensor(x):
+        if cfg.moe_shard_map and S > 1:
+            y, aux = _moe_shard_map(cfg, p, x, moe_capacity(cfg, S),
+                                    expert_perm)
+        else:
+            y, aux = _moe_global(cfg, p, x, expert_perm)
+    else:
+        xr, C, mean_of_groups = _groups(cfg, x)
+        y, aux = _dispatch(cfg, p, xr, C, mean_of_groups, expert_perm)
+        y = y.reshape(B, S, D)
     if cfg.num_shared_experts > 0:
-        y = y + mlp_apply(cfg, p.shared, x)
+        y = y + constrain(mlp_apply(cfg, p.shared, x), ("batch", None, None))
     return y.to(x.dtype), aux

@@ -12,7 +12,11 @@ reference's ``lax.scan`` over layers becoming a Python loop.
 ``lm_apply`` and ``lm_decode`` serve under ``torch.no_grad``;
 ``lm_forward`` is the same forward keeping the autograd graph, each
 block wrapped by ``maybe_remat(cfg.remat)``, and ``lm_loss`` trains
-through it.
+through it.  On a mesh the residual stream stays at the activation
+layout (``common.residual``: a block's row-parallel contribution is
+summed there), the embedding lookup and the loss are explicit per
+vocabulary shard (``common.embed_tokens``, ``common.next_token_nll``),
+and the layers do what ``layers.py`` says.
 """
 from __future__ import annotations
 
@@ -20,15 +24,14 @@ import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .common import (ModelConfig, ParamDef, build_model, cache_device,
-                     maybe_remat, next_token_nll, register_params, rms_norm,
-                     softcap)
+                     embed_tokens, maybe_remat, next_token_nll,
+                     register_params, residual, rms_norm, softcap)
 from .layers import (MLP, Attention, MoE, attn_apply, attn_decode,
-                     attn_defs, make_kv_cache, mlp_apply, mlp_defs,
-                     moe_apply, moe_defs)
+                     attn_defs, kv_cache_axes, make_kv_cache, mlp_apply,
+                     mlp_defs, moe_apply, moe_defs)
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -117,10 +120,10 @@ def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor
 
 def _block(cfg: ModelConfig, p: Block, x: torch.Tensor,
            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    x = x + attn_apply(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
-                       positions)
+    x = residual(x, attn_apply(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
+                               positions))
     h, aux = _ffn(cfg, p, x)
-    return x + h, aux
+    return residual(x, h), aux
 
 
 def _embed(cfg: ModelConfig, params: LM, inputs: torch.Tensor
@@ -130,7 +133,7 @@ def _embed(cfg: ModelConfig, params: LM, inputs: torch.Tensor
     dtype."""
     if cfg.embed_inputs:
         return inputs.to(cfg.dtype)
-    return F.embedding(inputs.long(), params.embed)
+    return embed_tokens(params.embed, inputs)
 
 
 def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -198,6 +201,10 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                          stacked_layers=cfg.num_layers)
 
 
+def lm_cache_axes(cfg: ModelConfig):
+    return kv_cache_axes(cfg, stacked=True)
+
+
 @torch.no_grad()
 def lm_decode(cfg: ModelConfig, params: LM, token: torch.Tensor,
               cache: Dict[str, torch.Tensor], pos: int
@@ -210,7 +217,7 @@ def lm_decode(cfg: ModelConfig, params: LM, token: torch.Tensor,
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         h, _ = attn_decode(cfg, blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps),
                            layer_cache, pos)
-        x = x + h
-        x = x + _ffn(cfg, blk, x)[0]
+        x = residual(x, h)
+        x = residual(x, _ffn(cfg, blk, x)[0])
     return _logits(cfg, params, x[:, 0]), cache
 

@@ -13,6 +13,14 @@ model the token-shift lerps multiply bf16 activations by float32
 float32 product against its bf16 weight cast up (``_dot``) and
 ``time_mix`` / ``channel_mix`` return float32.
 
+On a mesh the chunked recurrence and the decode step run on each
+rank's local shards of the batch and the heads
+(``common.local_shards``): they are independent along both, DTensor
+would dispatch each small op of every step on its own, and its
+propagation of the step's 5-dimensional products on a 3-axis mesh
+searches redistribution paths for minutes.  The token shift, the projections and the
+group norm run on DTensors.
+
 Decode state per layer: the WKV state [B, H, N, N] (float32) and the
 last token's normed features for the time-mix and channel-mix shifts.
 """
@@ -25,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (ModelConfig, ParamDef, cache_device, maybe_remat,
+from .common import (ModelConfig, ParamDef, cache_device, embed_tokens,
+                     is_dtensor, local_shards, maybe_remat, reshape,
+                     residual,
                      next_token_nll, register_params, rms_norm, softcap)
 from .lm import stack_defs
 
@@ -228,18 +238,28 @@ def time_mix(cfg: ModelConfig, p: TimeMix, x: torch.Tensor,
     g = F.silu(_dot(lerp(p.mu_g), p.wg))
     w = _decay(p, lerp(p.mu_w))                          # [B, T, D] f32
 
-    r4, k4, v4, w4 = (a.reshape(B, T, H, N) for a in (r, k, v, w))
-    if state is None:
+    r4, k4, v4, w4 = (reshape(a, (B, T, H, N)) for a in (r, k, v, w))
+    if state is None and is_dtensor(r4):
+        wkv, S_final = local_shards(
+            functools.partial(wkv_chunked, chunk=cfg.chunk_size),
+            (r4, k4, v4, w4, p.u), ((0, 2),) * 4 + ((None, 0),),
+            ((0, 2), (0, 1)), batch=B, chans=H)
+    elif state is None:
         wkv, S_final = wkv_chunked(r4, k4, v4, w4, p.u, cfg.chunk_size)
     else:
-        S_final, out = wkv_step(state[0], r4[:, 0], k4[:, 0], v4[:, 0],
-                                w4[:, 0], p.u)
+        step_args = (state[0], r4[:, 0], k4[:, 0], v4[:, 0], w4[:, 0], p.u)
+        if is_dtensor(r4):
+            S_final, out = local_shards(wkv_step, step_args,
+                                        ((0, 1),) * 5 + ((None, 0),),
+                                        ((0, 1), (0, 1)), batch=B, chans=H)
+        else:
+            S_final, out = wkv_step(*step_args)
         wkv = out[:, None]
     # per-head group norm
     mu = wkv.mean(-1, keepdim=True)
     var = wkv.var(-1, keepdim=True, correction=0)
     wkv = (wkv - mu) * torch.rsqrt(var + 64e-5)
-    wkv = wkv.reshape(B, T, D) * p.ln_x
+    wkv = reshape(wkv, (B, T, D)) * p.ln_x
     out = _dot(wkv.to(x.dtype) * g, p.wo)
     return out, (S_final, x[:, -1])
 
@@ -260,9 +280,9 @@ def channel_mix(cfg: ModelConfig, p: ChannelMix, x: torch.Tensor,
 
 def _block(cfg: ModelConfig, p: RWKVBlock, x: torch.Tensor) -> torch.Tensor:
     h, _ = time_mix(cfg, p.tm, rms_norm(x, p.ln1, cfg.norm_eps))
-    x = x + h.to(x.dtype)
+    x = residual(x, h.to(x.dtype))
     h, _ = channel_mix(cfg, p.cm, rms_norm(x, p.ln2, cfg.norm_eps))
-    return x + h.to(x.dtype)
+    return residual(x, h.to(x.dtype))
 
 
 def _logits(cfg: ModelConfig, params: RWKV, x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +295,7 @@ def rwkv_apply(cfg: ModelConfig, params: RWKV, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] -> (logits [B, T, V], 0): rwkv has no aux loss."""
-    x = F.embedding(tokens.long(), params.embed)
+    x = embed_tokens(params.embed, tokens)
     for blk in params.blocks:
         x = _block(cfg, blk, x)
     return _logits(cfg, params, x), x.new_zeros((), dtype=torch.float32)
@@ -286,7 +306,7 @@ def rwkv_forward(cfg: ModelConfig, params: RWKV, tokens: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``rwkv_apply`` keeping the autograd graph (training): each block
     runs under ``maybe_remat(cfg.remat)``."""
-    x = F.embedding(tokens.long(), params.embed)
+    x = embed_tokens(params.embed, tokens)
     for blk in params.blocks:
         x = maybe_remat(functools.partial(_block, cfg, blk), cfg.remat)(x)
     return _logits(cfg, params, x), x.new_zeros((), dtype=torch.float32)
@@ -316,22 +336,28 @@ def rwkv_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                    device=dev)}
 
 
+def rwkv_cache_axes(cfg: ModelConfig):
+    return {"S": ("layers", "batch", "heads", None, None),
+            "tm_last": ("layers", "batch", "embed"),
+            "cm_last": ("layers", "batch", "embed")}
+
+
 @torch.no_grad()
 def rwkv_decode(cfg: ModelConfig, params: RWKV, token: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: int
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token: [B] int.  Returns (logits [B, V], cache), the cache
     updated in place."""
-    x = F.embedding(token[:, None].long(), params.embed)      # [B, 1, D]
+    x = embed_tokens(params.embed, token[:, None])      # [B, 1, D]
     for i, blk in enumerate(params.blocks):
         h, (S, tml) = time_mix(cfg, blk.tm,
                                rms_norm(x, blk.ln1, cfg.norm_eps),
                                state=(cache["S"][i], cache["tm_last"][i]))
-        x = x + h.to(x.dtype)
+        x = residual(x, h.to(x.dtype))
         h, cml = channel_mix(cfg, blk.cm, rms_norm(x, blk.ln2, cfg.norm_eps),
                              cache["cm_last"][i])
-        x = x + h.to(x.dtype)
-        cache["S"][i] = S
-        cache["tm_last"][i] = tml
-        cache["cm_last"][i] = cml
+        x = residual(x, h.to(x.dtype))
+        cache["S"][i].copy_(S)
+        cache["tm_last"][i].copy_(tml)
+        cache["cm_last"][i].copy_(cml)
     return _logits(cfg, params, x[:, 0]), cache

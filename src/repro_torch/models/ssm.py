@@ -6,6 +6,10 @@ over time with each step's decay computed inside it: materialising
 exp(dt A) over the whole sequence would be [B, T, d_in, N], 4.3 GB at
 jamba's width for one 4096-token sequence.
 
+On a mesh the loop runs on each rank's local shards of the batch and
+of d_in (``common.local_shards``): every step is independent along
+both, and DTensor would dispatch each of its small ops on its own.
+
 One departure from the reference: the decode state carries the causal
 convolution's last K - 1 *inputs*, the context the prefill convolution
 reads.  The reference's ``mamba_apply`` carries its last K - 1 outputs
@@ -20,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ModelConfig, ParamDef, cache_device, register_params
+from .common import (ModelConfig, ParamDef, cache_device, is_dtensor,
+                     local_shards, register_params)
 
 
 def mamba_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -68,6 +73,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
+def _selective_scan(dt: torch.Tensor, dx: torch.Tensor, Bf: torch.Tensor,
+                    Cf: torch.Tensor, A: torch.Tensor,
+                    h: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = h_t C_t over the
+    T steps of dt, dx [B, T, d_in], B / C [B, T, N] (float32), from h
+    [B, d_in, N] (zeros for ``None``): (y [B, T, d_in], the last h)."""
+    Bn, T, d_in = dt.shape
+    if h is None:
+        h = dt.new_zeros((Bn, d_in, A.shape[-1]))
+    ys = []
+    for t in range(T):
+        decay = torch.exp(dt[:, t, :, None] * A)             # [B, d_in, N]
+        h = decay * h + dx[:, t, :, None] * Bf[:, t, None, :]
+        ys.append((h @ Cf[:, t, :, None])[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
 def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -92,17 +115,17 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
     dt = F.softplus(dt_r.float() @ p.dt_proj + p.dt_bias)    # [B, T, d_in]
     A = -torch.exp(p.A_log)                                  # [d_in, N]
 
-    h = (x1.new_zeros((B, d_in, N), dtype=torch.float32) if state is None
-         else state[0])
     xf = x1.float()
-    dx = dt * xf
-    Bf, Cf = Bc.float(), Cc.float()
-    ys = []
-    for t in range(T):
-        decay = torch.exp(dt[:, t, :, None] * A)             # [B, d_in, N]
-        h = decay * h + dx[:, t, :, None] * Bf[:, t, None, :]
-        ys.append((h @ Cf[:, t, :, None])[..., 0])
-    y = torch.stack(ys, dim=1) + xf * p.D_skip
+    scan_args = (dt, dt * xf, Bc.float(), Cc.float(), A,
+                 None if state is None else state[0])
+    if is_dtensor(x1):
+        ys, h = local_shards(_selective_scan, scan_args,
+                             ((0, 2), (0, 2), (0, None), (0, None),
+                              (None, 0), (0, 1)), ((0, 2), (0, 1)),
+                             batch=B, chans=d_in)
+    else:
+        ys, h = _selective_scan(*scan_args)
+    y = ys + xf * p.D_skip
     y = y.to(x.dtype) * F.silu(z)
     return y @ p.out_proj, (h, ctx)
 

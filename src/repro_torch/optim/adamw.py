@@ -7,7 +7,13 @@ keeps its state in the parameter dtype and rounds differently, so it
 is not used.
 
 A tree is what ``repro_torch.tree`` walks: the train step passes the
-model's parameters as a dict keyed by their module names.
+model's parameters as a dict keyed by their module names.  On a mesh
+the leaves are DTensors: each gradient is first brought to its
+parameter's placements (a Partial gradient is reduced there once, as
+GSPMD reduce-scatters it; left Partial, the global norm and the update
+would each reduce it again), the moments take the parameters'
+placements, and every update is local to a shard, but for the global
+norm.
 """
 from __future__ import annotations
 
@@ -33,13 +39,15 @@ class AdamWConfig:
 
 def adamw_init(params: Any, cfg: AdamWConfig) -> Any:
     """Zero moments of ``params``' shapes in ``cfg.state_dtype``, each on
-    its parameter's device, and an int32 step (on the first leaf's
+    its parameter's device (a DTensor parameter's moments are DTensors
+    on its placements), and an int32 step (on the first leaf's
     device)."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
 
     def zeros(p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.state_dtype,
+                                memory_format=torch.contiguous_format)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -47,7 +55,9 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> Any:
 
 def _global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the per-leaf float32 sums of squares, summed in leaf
-    order."""
+    order.  A DTensor leaf's sum reduces across its shards (its local
+    sums come out Partial and are all-reduced where they are added), so
+    the norm is the whole tree's on every rank."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in tree_leaves(grads)))
 
@@ -59,11 +69,21 @@ def clip_by_global_norm(grads: Any, max_norm: float
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
+def _at_param_placements(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements;
+    a plain one as it is."""
+    pl = getattr(p, "placements", None)
+    if pl is None or tuple(g.placements) == tuple(pl):
+        return g
+    return g.redistribute(p.device_mesh, pl)
+
+
 def adamw_update(params: Any, grads: Any, state: Any, cfg: AdamWConfig,
                  lr: Optional[Union[float, torch.Tensor]] = None
                  ) -> Tuple[Any, Any, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the inputs are left
     as they are."""
+    grads = tree_map(_at_param_placements, params, grads)
     if cfg.clip_norm is not None:
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     else:

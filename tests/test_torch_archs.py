@@ -59,7 +59,7 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.25)}
 # the JAX package's config fields that the port leaves out (the
 # docstring of the port's ModelConfig says why)
-UNPORTED_FIELDS = {"expert_affinity_placement", "fsdp", "seq_shard_decode"}
+UNPORTED_FIELDS = {"expert_affinity_placement"}
 FORWARD_SHAPE = (2, 256)
 # bf16 routing: a near-tie is a K-th and (K+1)-th router probability
 # within 2^-10 (about a quarter of bf16's 2^-8 relative step at the

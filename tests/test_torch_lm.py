@@ -180,14 +180,37 @@ def test_forward_matches_decode_in_the_port(no_launches):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("change", [{"fsdp": True},
-                                    {"seq_shard_decode": True},
-                                    {"expert_affinity_placement": True},
+@pytest.mark.parametrize("field", ["fsdp", "seq_shard_decode"])
+def test_sharding_fields_reach_the_rules(field):
+    """``fsdp`` and ``seq_shard_decode`` are accepted, as the reference's
+    ``ModelConfig`` accepts them, and reach ``launch.steps._rules_for``
+    as the reference's: FSDP shards the embed axis over "data" (then
+    "pod"), and the decode rules shard the cache's sequence on
+    "model"; a config without them gets neither."""
+    from repro.launch.steps import _rules_for as j_rules_for
+    from repro_torch.launch.steps import _rules_for
+    cfg = dataclasses.replace(tqwen3.SMOKE, **{field: True})
+    jcfg = dataclasses.replace(jqwen3.SMOKE, **{field: True})
+    assert getattr(cfg, field) is True
+    for decode in (False, True):
+        assert _rules_for(cfg, decode) == j_rules_for(jcfg, decode)
+        assert _rules_for(tqwen3.SMOKE, decode) == j_rules_for(
+            jqwen3.SMOKE, decode)
+    if field == "fsdp":
+        assert _rules_for(cfg, False)["embed"] == [("data",), ("pod",)]
+        assert _rules_for(tqwen3.SMOKE, False)["embed"] == []
+    else:
+        assert _rules_for(cfg, True)["cache_seq"] == [("model",)]
+        assert _rules_for(cfg, False)["cache_seq"] == []
+        assert _rules_for(tqwen3.SMOKE, True)["cache_seq"] == []
+
+
+@pytest.mark.parametrize("change", [{"expert_affinity_placement": True},
                                     {"family": "ssm"},
                                     {"family": "rwkv"},
                                     {"family": "hybrid", "num_layers": 12}])
 def test_unported_options_raise(change):
-    """What the port still refuses: the three reference fields it has no
+    """What the port still refuses: the reference field it has no
     counterpart for (a ``TypeError`` when the config is made), a family
     no package has (``KeyError``), the transformer ``LM`` built for
     another family (it names ``get_api``), and a jamba whose layers are

@@ -408,3 +408,110 @@ def lead_failure_rank(state, query_edges, where):
             if where == "leader":
                 raise ValueError("rank 0 fails inside its lead block")
     return "led"
+
+
+# ----------------------------------------------------------------------
+# The LM substrate on a (2, 2) ("data", "model") DeviceMesh
+# (tests/test_torch_sharded_steps.py)
+# ----------------------------------------------------------------------
+
+def _full_numpy(t):
+    """A DTensor (or plain tensor) gathered whole, as a float32 or int
+    numpy array."""
+    from repro_torch.models.common import is_dtensor
+    t = t.full_tensor() if is_dtensor(t) else t
+    t = t.detach()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def _local_shapes(named):
+    return {k: tuple(v.to_local().shape) for k, v in named.items()}
+
+
+def _tree_numpy(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(_full_numpy, tree)
+
+
+def sharded_case(case, mesh):
+    """One model config of ``case`` through the sharded forward, train
+    and serve steps (each in ``case["kinds"]``) from the JAX-layout
+    weights ``case["params"]``, and through the unsharded serve step
+    for the decode state the JAX package carries differently (jamba's
+    conv context)."""
+    from repro_torch.launch.steps import (make_forward_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import get_api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = case["cfg"]
+    api = get_api(cfg)
+    B, S = case["toks"].shape
+    toks = torch.from_numpy(case["toks"])
+    out = {}
+
+    def model():
+        return convert.lm_params_from_numpy(case["params"], cfg, "cpu")
+
+    if "forward" in case["kinds"]:
+        fb = make_forward_step(cfg, mesh=mesh, batch=B, seq=S)
+        logits = fb.fn(model(), toks)
+        out["forward"] = {"logits": _full_numpy(logits),
+                          "local": tuple(logits.to_local().shape)}
+    if "train" in case["kinds"]:
+        opt = AdamWConfig()
+        tb = make_train_step(cfg, opt, batch=B, seq=S,
+                             total_steps=case["total_steps"], mesh=mesh)
+        m = model()
+        state = adamw_init(dict(m.named_parameters()), opt)
+        metrics = []
+        for x, y in case["batches"]:
+            m, state, met = tb.fn(m, state, torch.from_numpy(x),
+                                  torch.from_numpy(y))
+            metrics.append({k: float(_full_numpy(v)) for k, v in met.items()})
+        named = dict(m.named_parameters())
+        out["train"] = {
+            "metrics": metrics,
+            "params": convert._stack_named(
+                {k: torch.from_numpy(_full_numpy(v))
+                 for k, v in named.items()}, cfg),
+            "m": convert._stack_named(
+                {k: torch.from_numpy(_full_numpy(v))
+                 for k, v in state["m"].items()}, cfg),
+            "local": _local_shapes(named),
+            "m_local": _local_shapes(state["m"])}
+    if "serve" in case["kinds"]:
+        L = case["max_len"]
+        sb = make_serve_step(cfg, mesh=mesh, batch=B, max_len=L)
+        plain = make_serve_step(cfg)
+        m, ref = model(), model()
+        cache = api.init_cache(cfg, B, L, "cpu")
+        ref_cache = api.init_cache(cfg, B, L, "cpu")
+        tok = ref_tok = toks[:, 0]
+        steps = []
+        for pos in range(case["serve_steps"]):
+            tok, cache = sb.fn(m, tok, cache, pos)
+            ref_tok, ref_cache = plain(ref, ref_tok, ref_cache, pos)
+            steps.append((_full_numpy(tok), ref_tok.numpy()))
+        from repro_torch.tree import tree_leaves
+        out["serve"] = {"tokens": steps, "cache": _tree_numpy(cache),
+                        "plain_cache": _tree_numpy(ref_cache),
+                        "local": [tuple(t.to_local().shape)
+                                  for t in tree_leaves(cache)]}
+    return out
+
+
+def sharded_steps_rank(cases):
+    """Every case of ``tests/test_torch_sharded_steps.py`` on this rank
+    of a 4-rank gloo group, on its (2, 2) ("data", "model") mesh: rank r
+    at mesh coordinate (r // 2, r % 2).  Returns each case's record
+    (whole tensors on every rank; local shard shapes of this rank)."""
+    import logging
+    from repro_torch.launch.mesh import make_grid_mesh
+    torch.set_num_threads(1)
+    # DTensor logs every two-step Partial reduction it schedules
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    mesh = make_grid_mesh((2, 2), ("data", "model"), device="cpu")
+    return {"rank": dist.get_rank(),
+            "coord": tuple(int(c) for c in mesh.get_coordinate()),
+            "cases": {name: sharded_case(case, mesh)
+                      for name, case in cases.items()}}
