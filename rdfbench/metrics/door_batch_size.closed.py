@@ -1,0 +1,2 @@
+"""``door_batch_size.closed``: see ``readers.door_batch_size``."""
+from rdfbench.readers import door_batch_size as read  # noqa: F401
